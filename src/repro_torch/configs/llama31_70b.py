@@ -1,0 +1,26 @@
+"""Llama 3.1-70B — the paper's large evaluation model (Table 1)."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama31-70b",
+    family="dense",
+    n_layers=80,
+    d_model=8192,
+    n_heads=64,
+    n_kv_heads=8,
+    d_ff=28_672,
+    vocab_size=128_256,
+    rope_theta=500_000.0,
+    source="paper Table 1",
+)
+
+SMOKE_CONFIG = ModelConfig(
+    name="llama31-70b-smoke",
+    family="dense",
+    n_layers=2,
+    d_model=64,
+    n_heads=4,
+    n_kv_heads=2,
+    d_ff=128,
+    vocab_size=256,
+)
