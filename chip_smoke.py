@@ -6,27 +6,43 @@ card.  Usage, from the root of a checkout::
 
 Phases:
   1. Print the card (``nvidia-smi`` name and power limit) and the torch
-     version, and build the CUDA kernel from ``src/repro_torch`` with
-     ``nvcc`` (timed).
-  2. Hold the fused MSA kernel against its plain PyTorch version on the
-     card, on the same inputs, at Llama-3.1-8B attention shapes (H 32,
-     KH 8, D 128, page 16): one mixed step of two multi-segment prefill
-     chunks on non-contiguous block tables plus 32 decode rows with
-     contexts up to 4k, in bf16 and f32, and small cases with a sliding
-     window, a softcap and all-padding tiles.  Time kernel and plain
-     version with CUDA events (median of 20) beside the byte bound.
-     A decode-only step of 32 rows (the serving run's commonest bucket)
-     is timed as well.
+     version, and build the three CUDA kernels from ``src/repro_torch``
+     with ``nvcc``, one compiler each, all at once (each timed).
+  2. Hold each kernel against its plain PyTorch version on the card, on
+     the same inputs, at Llama-3.1-8B attention shapes (H 32, KH 8,
+     D 128, page 16), in bf16 and f32:
+     - fused: one mixed step of two multi-segment prefill chunks on
+       non-contiguous block tables plus 32 decode rows with contexts up
+       to 4k, and small cases with a sliding window, a softcap and
+       all-padding tiles; a decode-only step of 32 rows (the fused
+       serving run's commonest bucket) is timed as well;
+     - prefill: R 4 chunks of QP 128 (one with two gaps, one ragged, one
+       empty, one full) with contexts up to 4k, and small cases with a
+       window, a softcap and an all-padding step; the main case again at
+       q tiles of 4, 8, 16 and 32 rows (the same bits, and each timed);
+     - decode: B 64 rows, 32 with contexts up to 4k and 32 padding rows
+       (ctx 1), and small window and softcap cases; and the decode
+       kernel on the fused decode-only step's 32 rows.
+     Kernel and plain version are timed with CUDA events (median of 20)
+     beside the bound.
   3. Serve a multi-turn workload through ``AsymCacheServer.run`` with
      Llama-3.1-8B at full width and depth (bf16, random weights from a
      seeded generator) and a KV pool small enough to force evictions;
      check every request finished, one kernel launch per layer per step,
      and each request's first logits against the dense reference.
+  3b. Serve the same workload in the split layout (``attn_mode="split"``):
+     one prefill and one decode kernel launch per layer per step, the
+     fused kernel never, first logits against the dense reference; then
+     serve it once more in each layout on the model clock, where the
+     schedule does not depend on the step times, and hold split to fused:
+     the same steps, evictions, recomputed tokens and multi-segment
+     chunks, equal first sampled ids, first logits within tolerance.
   4. Profile a short serving run (``torch.profiler``): device time by
      kernel, the attention kernel's share, the device's idle share.
 
-Prints the card line again, the kernel table as a JSON line, and, last,
-``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit).
+Prints the card line again, the kernel table (all three kernels) as a
+JSON line, and, last, ``{"ok": true, "device": {...}}``.  Any failure
+raises (non-zero exit).
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
 from __future__ import annotations
@@ -145,6 +161,16 @@ def _step_case(rng, *, H, KH, D, page, prefills, decode_ctx, t_bucket,
         pages_read=pages_read, flops=4.0 * float(keys.sum()) * H * D)
 
 
+def _bound(nbytes, flops, dtype_name):
+    """The least time the card could take: bytes over the memory rate or
+    operations over the dtype's peak, whichever is larger."""
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return {"bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "bytes": nbytes}
+
+
 def _run_case(case, dtype_name, *, time_it=False):
     import torch
     from repro_torch.kernels.msa import WL_FIELDS, msa_fused
@@ -187,11 +213,7 @@ def _run_case(case, dtype_name, *, time_it=False):
         _, page, KH, _ = kp.shape
         nbytes = (2 * case["pages_read"] * page * KH * D * itemsize
                   + 2 * q.shape[0] * H * D * itemsize)
-        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        op_ms = case["flops"] / PEAK_FLOPS[dtype_name] * 1e3
-        out["bound_ms"] = max(byte_ms, op_ms)
-        out["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
-        out["bytes"] = nbytes
+        out.update(_bound(nbytes, case["flops"], dtype_name))
     del got, want
     return out
 
@@ -241,17 +263,290 @@ def kernel_phase():
         if not (res["finite"] and res["slack_zero"]
                 and res["max_abs_err"] <= tol):
             raise AssertionError(f"msa_fused kernel disagrees: {line}")
-    return results[("main", "bfloat16")]
+    return results, decode
+
+
+# ---------------------------------------------------------------------------
+# phase 2, split layout: the prefill and decode kernels vs plain versions
+# ---------------------------------------------------------------------------
+
+def _tables(rng, ctxs, page):
+    """Block tables of sequences with disjoint, shuffled (non-contiguous)
+    pool pages; the pool size."""
+    n_pages = [-(-int(c) // page) for c in ctxs]
+    NP = max(n_pages)
+    P = sum(n_pages) + 1
+    perm = rng.permutation(P)
+    bt = np.zeros((len(ctxs), NP), np.int32)
+    off = 0
+    for s, k in enumerate(n_pages):
+        bt[s, :k] = perm[off:off + k]
+        off += k
+    return bt, P
+
+
+def _visible(q_pos, ctx, window, page):
+    """Keys and pages one valid row at q_pos sees."""
+    hi = min(int(q_pos), int(ctx) - 1)
+    lo = max(0, int(q_pos) - window + 1) if window > 0 else 0
+    if hi < lo:
+        return 0, range(0)
+    return hi - lo + 1, range(lo // page, hi // page + 1)
+
+
+def _prefill_case(rng, *, H, KH, D, page, QP, chunks, window=0,
+                  softcap=0.0):
+    """R padded chunks, each ``(ctx, [(lo, hi), ...])`` position runs
+    (none: an empty chunk), on non-contiguous pages; the pages and
+    operations the valid rows need."""
+    ctxs = [c for c, _ in chunks]
+    bt, P = _tables(rng, ctxs, page)
+    R = len(chunks)
+    q_pos = np.zeros((R, QP), np.int32)
+    q_lens = np.zeros((R,), np.int32)
+    slots, keys = set(), 0
+    for r, (c, segs) in enumerate(chunks):
+        pos = np.concatenate([np.arange(lo, hi) for lo, hi in segs]) \
+            if segs else np.zeros((0,), np.int64)
+        q_pos[r, :len(pos)] = pos
+        q_lens[r] = len(pos)
+        for p in pos:
+            n, pages = _visible(p, c, window, page)
+            keys += n
+            slots.update(int(bt[r, j]) for j in pages)
+    return dict(
+        args=(rng.standard_normal((R, QP, H, D)).astype(np.float32),
+              rng.standard_normal((P, page, KH, D)).astype(np.float32),
+              rng.standard_normal((P, page, KH, D)).astype(np.float32),
+              bt, np.asarray(ctxs, np.int32), q_pos, q_lens),
+        window=window, softcap=softcap, pages_read=len(slots),
+        flops=4.0 * keys * H * D, rows_in=int(q_lens.sum()), rows_out=R * QP)
+
+
+def _decode_case(rng, *, H, KH, D, page, ctx_active, n_pad, window=0,
+                 softcap=0.0):
+    """Decode rows with contexts ``ctx_active`` on non-contiguous pages,
+    then ``n_pad`` padding rows as the serving engine makes them (ctx 1,
+    an all-zero block table: slot 0 is a real page, read and never
+    selected)."""
+    bt_act, P = _tables(rng, ctx_active, page)
+    B = len(ctx_active) + n_pad
+    bt = np.zeros((B, bt_act.shape[1]), np.int32)
+    bt[:len(ctx_active)] = bt_act
+    ctx = np.ones((B,), np.int32)
+    ctx[:len(ctx_active)] = ctx_active
+    slots, keys = set(), 0
+    for b in range(B):
+        n, pages = _visible(ctx[b] - 1, ctx[b], window, page)
+        keys += n
+        slots.update(int(bt[b, j]) for j in pages)
+    return dict(
+        args=(rng.standard_normal((B, H, D)).astype(np.float32),
+              rng.standard_normal((P, page, KH, D)).astype(np.float32),
+              rng.standard_normal((P, page, KH, D)).astype(np.float32),
+              bt, ctx),
+        window=window, softcap=softcap, pages_read=len(slots),
+        flops=4.0 * keys * H * D, rows_in=B, rows_out=B)
+
+
+def _run_split_case(kind, case, dtype_name, *, time_it=False):
+    import torch
+    from repro_torch.kernels.msa import msa_decode, msa_prefill
+    from repro_torch.kernels.msa.ref import msa_decode_ref, msa_prefill_ref
+    dt = getattr(torch, dtype_name)
+    dev = torch.device("cuda")
+    args = [torch.from_numpy(a).to(dev, dt) if a.dtype == np.float32
+            else torch.from_numpy(a).to(dev) for a in case["args"]]
+    kw = dict(window=case["window"], softcap=case["softcap"])
+    kernel_fn, plain_fn = ((msa_prefill, msa_prefill_ref) if kind == "prefill"
+                           else (msa_decode, msa_decode_ref))
+
+    def kernel():
+        return kernel_fn(*args, **kw)
+
+    def plain():
+        return plain_fn(*args, **kw)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    out = {"max_abs_err": float((got.float() - want.float()).abs().max()),
+           "finite": bool(torch.isfinite(got).all()), "padding_zero": True}
+    if kind == "prefill":
+        q_lens = args[6]
+        pad = (torch.arange(got.shape[1], device=dev)[None, :]
+               >= q_lens[:, None])
+        out["padding_zero"] = bool((got[pad] == 0).all())
+    if time_it:
+        out["ms"] = _median_ms(kernel)
+        out["plain_ms"] = _median_ms(plain)
+        q, kp = args[0], args[1]
+        _, page, KH, D = kp.shape
+        H, itemsize = q.shape[-2], q.element_size()
+        # K and V of each needed page, q of the rows the kernel reads (a
+        # prefill padding row is never read) and o of every row it writes
+        nbytes = (2 * case["pages_read"] * page * KH * D
+                  + (case["rows_in"] + case["rows_out"]) * H * D) * itemsize
+        out.update(_bound(nbytes, case["flops"], dtype_name))
+    del got, want
+    return out
+
+
+def split_kernel_phase(fused_results, fused_decode):
+    """The prefill and decode kernels against their plain versions, and
+    the decode kernel on the fused kernel's decode-only step."""
+    import torch
+    rng = np.random.default_rng(1)
+    llama = dict(H=32, KH=8, D=128, page=16)
+    main_prefill = _prefill_case(rng, **llama, QP=128, chunks=[
+        # a multi-segment recompute: two gaps in its positions
+        (3000, [(200, 240), (1500, 1540), (2952, 3000)]),
+        (4096, [(3999, 4096)]),          # ragged: q_lens 97
+        (2048, []),                      # empty: q_lens 0, exact zeros
+        (1152, [(1024, 1152)])])         # full
+    decode_ctx = rng.integers(64, 4097, size=32)
+    main_decode = _decode_case(rng, **llama, ctx_active=decode_ctx,
+                               n_pad=32)
+    small = {
+        ("prefill", "window"): _prefill_case(
+            rng, **llama, QP=64, window=300, chunks=[
+                (900, [(100, 140), (876, 900)]), (600, [(560, 600)])]),
+        ("prefill", "softcap"): _prefill_case(
+            rng, **llama, QP=32, softcap=30.0, chunks=[
+                (500, [(0, 20), (488, 500)]), (77, [(70, 77)])]),
+        ("prefill", "all_padding"): _prefill_case(
+            rng, **llama, QP=128, chunks=[(4096, []), (1000, []),
+                                          (17, []), (2500, [])]),
+        ("decode", "window"): _decode_case(
+            rng, **llama, window=300,
+            ctx_active=rng.integers(1, 2000, size=12), n_pad=4),
+        ("decode", "softcap"): _decode_case(
+            rng, **llama, softcap=30.0,
+            ctx_active=rng.integers(1, 2000, size=12), n_pad=4),
+    }
+    results = {}
+    for dtype_name in ("bfloat16", "float32"):
+        results[("prefill", "main", dtype_name)] = _run_split_case(
+            "prefill", main_prefill, dtype_name, time_it=True)
+        results[("decode", "main", dtype_name)] = _run_split_case(
+            "decode", main_decode, dtype_name, time_it=True)
+        for (kind, name), case in small.items():
+            results[(kind, name, dtype_name)] = _run_split_case(
+                kind, case, dtype_name)
+    for (kind, name, dtype_name), res in results.items():
+        tol = KERNEL_TOL[dtype_name]
+        line = {"kernel": f"msa_{kind}", "case": name, "dtype": dtype_name,
+                "tol": tol, **res}
+        print("kernel_check " + json.dumps(line), flush=True)
+        if not (res["finite"] and res["padding_zero"]
+                and res["max_abs_err"] <= tol):
+            raise AssertionError(f"msa_{kind} kernel disagrees: {line}")
+
+    # the prefill kernel's q tile (rows a block serves): the same bits in
+    # every tile, and the time of each (the wrapper's default is one)
+    from repro_torch.kernels.msa import msa_prefill_cuda
+    args = [torch.from_numpy(a).to("cuda", torch.bfloat16)
+            if a.dtype == np.float32 else torch.from_numpy(a).to("cuda")
+            for a in main_prefill["args"]]
+    want = msa_prefill_cuda(*args)
+    for q_tile in (4, 8, 16, 32):
+        same = bool(torch.equal(msa_prefill_cuda(*args, q_tile=q_tile),
+                                want))
+        ms = _median_ms(lambda: msa_prefill_cuda(*args, q_tile=q_tile))
+        print("prefill_tile_sweep " + json.dumps(
+            {"dtype": "bfloat16", "q_tile": q_tile, "ms": ms,
+             "same_bits_as_default": same}), flush=True)
+        if not same:
+            raise AssertionError(f"msa_prefill depends on the q tile "
+                                 f"({q_tile})")
+    del args, want
+
+    # the fused kernel's decode-only step (32 rows) through the decode
+    # kernel: one page read per GQA group against the fused kernel's walk
+    # of each head on its own
+    n = len(fused_decode["ctx"])
+    same_step = dict(
+        args=(fused_decode["q"][:n], fused_decode["k"], fused_decode["v"],
+              fused_decode["bt"], fused_decode["ctx"]),
+        window=0, softcap=0.0, pages_read=fused_decode["pages_read"],
+        flops=fused_decode["flops"], rows_in=n, rows_out=n)
+    for dtype_name in ("bfloat16", "float32"):
+        dec = _run_split_case("decode", same_step, dtype_name, time_it=True)
+        fused = fused_results[("decode", dtype_name)]
+        line = {"step": "decode-only, 32 rows", "dtype": dtype_name,
+                "msa_fused_ms": fused["ms"], "msa_decode_ms": dec["ms"],
+                "msa_decode_bound_ms": dec["bound_ms"],
+                "msa_decode_max_abs_err": dec["max_abs_err"]}
+        print("fused_vs_decode " + json.dumps(line), flush=True)
+        if not (dec["finite"]
+                and dec["max_abs_err"] <= KERNEL_TOL[dtype_name]):
+            raise AssertionError(f"msa_decode kernel disagrees: {line}")
+    torch.cuda.synchronize()
+    return (results[("prefill", "main", "bfloat16")],
+            results[("decode", "main", "bfloat16")])
 
 
 # ---------------------------------------------------------------------------
 # phase 3: serve Llama-3.1-8B at full width through the port
 # ---------------------------------------------------------------------------
 
+def _kernel_counts():
+    """The launch counters of the three kernel wrappers."""
+    from repro_torch.kernels.msa import (msa_decode_cuda, msa_fused_cuda,
+                                         msa_prefill_cuda)
+    return {"msa_fused": msa_fused_cuda, "msa_prefill": msa_prefill_cuda,
+            "msa_decode": msa_decode_cuda}
+
+
+def _measured_run(srv, wl):
+    """Drive one serving run with every kernel's launch count set to 0
+    just before and read just after; count the prefill chunks whose
+    compute positions have gaps (the multi-segment recompute of a history
+    that was partly evicted)."""
+    import torch
+    dispatch, seg_chunks = srv.engine.dispatch, []
+
+    def counting_dispatch(plan):
+        seg_chunks.extend(c for c in plan.prefills
+                          if np.any(np.diff(c.positions) > 1))
+        return dispatch(plan)
+
+    srv.engine.dispatch = counting_dispatch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in _kernel_counts().values():
+        fn.launches = 0
+    res = srv.run(wl)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in _kernel_counts().items()}
+    return res, len(seg_chunks), launches
+
+
+def _serve_line(wl, res, seg_chunks, launches):
+    import torch
+    return {
+        "requests": len(wl), "finished": res["n_requests"],
+        "steps": res["steps"], "evictions": res["evictions"],
+        "multi_segment_chunks": seg_chunks,
+        "prefill_compute_tokens": res["prefill_compute_tokens"],
+        "prompt_tokens": res["prompt_tokens"],
+        "bucket_counts": res["bucket_counts"],
+        "attn_dispatches_per_step": res["attn_dispatches_per_step"],
+        "kernel_launches": launches,
+        "ttft_mean_s": res["ttft_mean"], "ttft_p90_s": res["ttft_p90"],
+        "tpot_mean_s": res["tpot_mean"], "tpot_p90_s": res["tpot_p90"],
+        "wall_s": res["wall_time"],
+        "steps_per_s": res["steps"] / res["wall_time"],
+        "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _rel(a, b):
+    return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+
 def serve_phase():
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.msa import msa_fused_cuda
     from repro_torch.models import init_params
     from repro_torch.serving import (AsymCacheServer, EngineConfig,
                                      ServerConfig, WorkloadConfig,
@@ -282,12 +577,14 @@ def serve_phase():
     # 256 blocks of 16 tokens hold ~2 sessions' contexts: the workload's
     # later turns find part of their history evicted and recompute it
     num_blocks = 256
-    ecfg = EngineConfig(num_pages=num_blocks, page_size=16, max_prefills=4,
-                        max_chunk=128, max_decodes=64, max_blocks_per_seq=128)
 
-    def make_server():
-        return AsymCacheServer(cfg, params,
-                               ServerConfig(num_blocks=num_blocks), ecfg=ecfg)
+    def make_server(attn_mode="fused", clock="wall"):
+        ecfg = EngineConfig(num_pages=num_blocks, page_size=16,
+                            max_prefills=4, max_chunk=128, max_decodes=64,
+                            max_blocks_per_seq=128, attn_mode=attn_mode)
+        return AsymCacheServer(
+            cfg, params, ServerConfig(num_blocks=num_blocks, clock=clock,
+                                      attn_mode=attn_mode), ecfg=ecfg)
 
     # warm-up on a separate server so that the measured run's TTFT does not
     # carry cuBLAS and allocator start-up
@@ -296,52 +593,27 @@ def serve_phase():
 
     srv = make_server()
     wl = make_workload(seed=0)
-    # count the prefill chunks whose compute positions have gaps: the
-    # multi-segment recompute of a history that was partly evicted
-    dispatch, seg_chunks = srv.engine.dispatch, []
-
-    def counting_dispatch(plan):
-        seg_chunks.extend(c for c in plan.prefills
-                          if np.any(np.diff(c.positions) > 1))
-        return dispatch(plan)
-
-    srv.engine.dispatch = counting_dispatch
-    torch.cuda.reset_peak_memory_stats()
-    msa_fused_cuda.launches = 0
-    res = srv.run(wl)
-    torch.cuda.synchronize()
-    launches = msa_fused_cuda.launches
+    res, seg_chunks, launches = _measured_run(srv, wl)
     steps = srv.engine.steps_executed
-    print("serve: " + json.dumps({
-        "requests": len(wl), "finished": res["n_requests"],
-        "steps": res["steps"], "evictions": res["evictions"],
-        "multi_segment_chunks": len(seg_chunks),
-        "prefill_compute_tokens": res["prefill_compute_tokens"],
-        "prompt_tokens": res["prompt_tokens"],
-        "bucket_counts": res["bucket_counts"],
-        "attn_dispatches_per_step": res["attn_dispatches_per_step"],
-        "kernel_launches": launches,
-        "ttft_mean_s": res["ttft_mean"], "ttft_p90_s": res["ttft_p90"],
-        "tpot_mean_s": res["tpot_mean"], "tpot_p90_s": res["tpot_p90"],
-        "wall_s": res["wall_time"],
-        "steps_per_s": res["steps"] / res["wall_time"],
-        "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}),
-        flush=True)
+    print("serve: " + json.dumps(_serve_line(wl, res, seg_chunks, launches)),
+          flush=True)
     assert all(r.status == "finished" for r in wl), \
         [r.status for r in wl]
     assert res["n_requests"] == len(wl)
     assert res["evictions"] > 0, "the pool never evicted"
     assert seg_chunks, "no prefill chunk recomputed a multi-segment history"
     assert res["attn_dispatches_per_step"] == cfg.n_layers
-    assert launches == cfg.n_layers * steps, (launches, steps)
+    assert launches == {"msa_fused": cfg.n_layers * steps, "msa_prefill": 0,
+                        "msa_decode": 0}, (launches, steps)
 
-    worst = 0.0
+    worst, refs = 0.0, []
     for r in wl:
         ref = reference_logits(cfg, params, r.prompt_tokens)
+        refs.append(ref)
         got = r.first_logits
         assert got is not None and got.shape == ref.shape
         assert np.all(np.isfinite(got))
-        rel = float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+        rel = _rel(got, ref)
         worst = max(worst, rel)
         print(f"serve: request {r.rid} prompt {len(r.prompt_tokens)} "
               f"rel_err {rel:.3e} argmax_match "
@@ -349,7 +621,77 @@ def serve_phase():
     print(f"serve: worst first-logit rel err {worst:.3e} "
           f"(tolerance {LOGIT_REL_TOL})", flush=True)
     assert worst < LOGIT_REL_TOL, worst
-    return launches, make_server, make_workload
+    return dict(cfg=cfg, launches=launches, make_server=make_server,
+                make_workload=make_workload, wl=wl, refs=refs)
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: serve the same workload in the split layout
+# ---------------------------------------------------------------------------
+
+def split_serve_phase(fused):
+    """The split layout's serving run (its kernel counts and metrics), and
+    split held to fused on the model clock, where both layouts see the
+    same arrivals at the same steps and so run the same schedule (the
+    workload forces each request's output tokens)."""
+    import torch
+    cfg, make_server, make_workload = (fused["cfg"], fused["make_server"],
+                                       fused["make_workload"])
+    L = cfg.n_layers
+    make_server("split").run(make_workload(seed=1)[:1])     # warm-up
+    torch.cuda.synchronize()
+    srv = make_server("split")
+    wl = make_workload(seed=0)
+    res, seg_chunks, launches = _measured_run(srv, wl)
+    steps = srv.engine.steps_executed
+    print("serve_split: " + json.dumps(
+        _serve_line(wl, res, seg_chunks, launches)), flush=True)
+    assert all(r.status == "finished" for r in wl), [r.status for r in wl]
+    assert res["n_requests"] == len(wl)
+    assert res["attn_dispatches_per_step"] == 2 * L
+    assert launches == {"msa_fused": 0, "msa_prefill": L * steps,
+                        "msa_decode": L * steps}, (launches, steps)
+    worst = 0.0
+    for r, f, ref in zip(wl, fused["wl"], fused["refs"]):
+        assert r.prompt_tokens == f.prompt_tokens
+        assert r.first_logits is not None and np.all(
+            np.isfinite(r.first_logits))
+        worst = max(worst, _rel(r.first_logits, ref))
+    print(f"serve_split: worst first-logit rel err vs dense {worst:.3e} "
+          f"(tolerance {LOGIT_REL_TOL})", flush=True)
+    assert worst < LOGIT_REL_TOL, worst
+
+    runs = {}
+    for mode in ("fused", "split"):
+        s_ = make_server(mode, clock="model")
+        w_ = make_workload(seed=0)
+        r_, seg_, launches_ = _measured_run(s_, w_)
+        runs[mode] = (w_, r_, seg_)
+    (wf, rf, segf), (ws, rs, segs) = runs["fused"], runs["split"]
+    same = {k: (rf[k], rs[k]) for k in
+            ("steps", "evictions", "prefill_compute_tokens")}
+    same["multi_segment_chunks"] = (segf, segs)
+    n_ids = sum(len(a.sampled_ids) for a in wf)
+    n_equal = sum(x == y for a, b in zip(wf, ws)
+                  for x, y in zip(a.sampled_ids, b.sampled_ids))
+    first_equal = [a.sampled_ids[:1] == b.sampled_ids[:1]
+                   for a, b in zip(wf, ws)]
+    vs_fused = [_rel(b.first_logits, a.first_logits) for a, b in zip(wf, ws)]
+    vs_dense = [_rel(b.first_logits, ref)
+                for b, ref in zip(ws, fused["refs"])]
+    print("split_vs_fused: " + json.dumps({
+        "clock": "model", "schedule": same,
+        "first_sampled_id_equal": sum(first_equal),
+        "requests": len(wf),
+        "sampled_ids_equal_share": n_equal / n_ids,
+        "sampled_ids": n_ids,
+        "worst_first_logit_rel_err_vs_fused": max(vs_fused),
+        "worst_first_logit_rel_err_vs_dense": max(vs_dense)}), flush=True)
+    assert all(a == b for a, b in same.values()), same
+    assert all(a.status == b.status == "finished" for a, b in zip(wf, ws))
+    assert all(first_equal), first_equal
+    assert max(vs_fused) < LOGIT_REL_TOL and max(vs_dense) < LOGIT_REL_TOL
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -414,32 +756,42 @@ def main() -> int:
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
-    import importlib
-    t0 = time.perf_counter()
-    lib = importlib.import_module(
-        "repro_torch.kernels.msa.msa_fused").load_library()
-    print(f"build: msa_fused.cu in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    log = Path(lib._name).with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print("build: " + line.strip(), flush=True)
+    from repro_torch.kernels.msa import _build
+    names = ("msa_fused", "msa_prefill", "msa_decode")
+    for name, secs in _build.build(names).items():
+        print(f"build: {name}.cu in {secs:.1f} s (built together)",
+              flush=True)
+    for name in names:
+        log = _build.library_path(name).with_suffix(".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"build: {name}: " + line.strip(), flush=True)
 
-    kern = kernel_phase()
+    fused_results, fused_decode = kernel_phase()
+    prefill_main, decode_main = split_kernel_phase(fused_results,
+                                                   fused_decode)
     torch.cuda.empty_cache()
-    launches, make_server, make_workload = serve_phase()
-    profile_phase(make_server, make_workload)
+    fused = serve_phase()
+    split_launches = split_serve_phase(fused)
+    profile_phase(fused["make_server"], fused["make_workload"])
 
+    fused_main = fused_results[("main", "bfloat16")]
+    src = "src/repro_torch/kernels/msa/csrc/"
+    rows = [("msa_fused", "msa_fused.py:146", fused_main,
+             fused["launches"]["msa_fused"]),
+            ("msa_prefill", "msa_prefill.py:36", prefill_main,
+             split_launches["msa_prefill"]),
+            ("msa_decode", "msa_decode.py:26", decode_main,
+             split_launches["msa_decode"])]
     print(card, flush=True)
     print(json.dumps({"kernels": [{
-        "name": "msa_fused", "route": "cuda",
-        "source": "src/repro_torch/kernels/msa/csrc/msa_fused.cu",
-        "replaces": "src/repro/kernels/msa/msa_fused.py:146",
-        "launches": launches, "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"], "plain_ms": kern["plain_ms"],
-        "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
-        "library_ms": None}]}), flush=True)
+        "name": name, "route": "cuda", "source": f"{src}{name}.cu",
+        "replaces": f"src/repro/kernels/msa/{where}",
+        "launches": n, "max_abs_err": res["max_abs_err"],
+        "ms": res["ms"], "plain_ms": res["plain_ms"],
+        "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+        "library_ms": None} for name, where, res, n in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

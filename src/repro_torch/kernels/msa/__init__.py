@@ -1,3 +1,4 @@
+from repro_torch.kernels.msa.msa_decode import msa_decode_cuda
 from repro_torch.kernels.msa.msa_fused import (
     WL_FIELDS,
     build_worklist,
@@ -5,13 +6,17 @@ from repro_torch.kernels.msa.msa_fused import (
     pad_worklist,
     tile_ranges,
 )
+from repro_torch.kernels.msa.msa_prefill import msa_prefill_cuda
 from repro_torch.kernels.msa.ops import (
     apply_page_copies,
     apply_swap_ins,
+    msa_decode,
     msa_fused,
+    msa_prefill,
     write_kv_pages,
 )
 
 __all__ = ["apply_page_copies", "apply_swap_ins", "build_worklist",
-           "msa_fused", "msa_fused_cuda", "pad_worklist", "tile_ranges",
+           "msa_decode", "msa_decode_cuda", "msa_fused", "msa_fused_cuda",
+           "msa_prefill", "msa_prefill_cuda", "pad_worklist", "tile_ranges",
            "write_kv_pages", "WL_FIELDS"]

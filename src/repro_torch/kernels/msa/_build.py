@@ -1,0 +1,162 @@
+"""Build, loading and argument checks shared by the hand-written CUDA
+kernels of ``csrc/`` (``msa_fused``, ``msa_prefill``, ``msa_decode``).
+
+Each kernel is one source, ``csrc/<name>.cu``, compiled with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface and bound with
+``ctypes``.  Libraries go to ``build/`` at the repository root (listed in
+``.gitignore``), named by a hash of the source, of the shared headers
+(``csrc/*.cuh``) and of the compiler flags, so a changed source is built
+anew and an unchanged one is loaded as it is.  :func:`build` compiles
+several kernels at once, one ``nvcc`` each.  Nothing here runs when a
+module is imported: a kernel is built on its first launch.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Sequence
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# shared memory one block may use on the H100 (kMaxSmem in msa_common.cuh)
+MAX_SMEM = 227 * 1024
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in (shutil.which("nvcc"),
+                 home and os.path.join(home, "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (the kernels need the CUDA toolkit)")
+
+
+def build(names: Iterable[str]) -> Dict[str, float]:
+    """Compile every named kernel whose library is missing, one ``nvcc``
+    each, all started together; returns each build's seconds (0.0 for a
+    library already built).  Each library is renamed into place whole, so
+    a concurrent process never loads a half-written file; the compiler's
+    report (registers, spills per kernel) goes beside it, ``.log``."""
+    secs: Dict[str, float] = {}
+    procs = []
+    for name in names:
+        so = library_path(name)
+        if so.exists():
+            secs[name] = 0.0
+            continue
+        so.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        with open(tmp + ".log", "w") as log:
+            proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+        procs.append((name, so, tmp, cmd, proc, time.perf_counter()))
+    while any(p[4].poll() is None for p in procs):
+        for name, _, _, _, proc, t0 in procs:
+            if proc.returncode is not None and name not in secs:
+                secs[name] = time.perf_counter() - t0
+        time.sleep(0.05)
+    failed = []
+    for name, so, tmp, cmd, proc, t0 in procs:
+        secs.setdefault(name, time.perf_counter() - t0)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            report = Path(tmp + ".log").read_text()
+            os.unlink(tmp + ".log")
+            failed.append(f"{name}: nvcc failed ({' '.join(cmd)}):\n{report}")
+            continue
+        os.replace(tmp + ".log", so.with_suffix(".log"))
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return secs
+
+
+def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, built first if missing, with
+    ``signatures`` ({function: (restype, argtypes)}) bound.  Pointers and
+    the stream must be ``ctypes.c_void_p`` in the argtypes, or ctypes
+    passes them as 32-bit ints."""
+    lib = _libs.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        for fn, (restype, argtypes) in signatures.items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        _libs[name] = lib
+    return lib
+
+
+def raise_on_error(lib: ctypes.CDLL, name: str, err: int) -> None:
+    """Raise if a launch returned a CUDA error (it never ran then)."""
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name}_cuda: launch failed: {msg}")
+
+
+def check_attention_operands(name: str, q: torch.Tensor,
+                             k_pages: torch.Tensor, v_pages: torch.Tensor,
+                             q_dims: int) -> None:
+    """The checks every kernel makes of q (``q_dims`` dims, head_dim last)
+    and the (P, page, KH, D) pools: CUDA, a served dtype, one dtype and
+    device, contiguous, aligned to a pair of elements, GQA-compatible head
+    counts, an even head dim of at most 256."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: q is on {q.device}, not cuda")
+    if q.dtype not in DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {q.dtype} not supported "
+                        "(bfloat16, float32)")
+    if q.dim() != q_dims or k_pages.dim() != 4:
+        raise ValueError(f"{name}: q must have {q_dims} dims and the pools "
+                         "be (P, page, KH, D)")
+    for what, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if x.dtype != q.dtype or x.device != q.device \
+                or not x.is_contiguous():
+            raise ValueError(f"{name}: {what} must be a contiguous "
+                             f"{q.dtype} tensor on {q.device}")
+        if x.data_ptr() % (2 * x.element_size()):
+            raise ValueError(f"{name}: {what} is not aligned to a pair of "
+                             "elements")
+    h, d = q.shape[-2], q.shape[-1]
+    kh = k_pages.shape[2]
+    if v_pages.shape != k_pages.shape or k_pages.shape[3] != d:
+        raise ValueError(f"{name}: pool shapes disagree with q")
+    if kh == 0 or h % kh:
+        raise ValueError(f"{name}: H={h}, KH={kh} not served")
+    if d % 2 or d > 256:
+        raise ValueError(f"{name}: head_dim {d} not served (even, at most "
+                         "256: a lane holds pairs of dims)")
+
+
+def check_i32(name: str, what: str, t: torch.Tensor, shape: Sequence[int],
+              device: torch.device) -> None:
+    if (t.dtype != torch.int32 or t.device != device or not t.is_contiguous()
+            or tuple(t.shape) != tuple(shape)):
+        raise ValueError(f"{name}: {what} must be a contiguous int32 "
+                         f"{tuple(shape)} tensor on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")

@@ -46,92 +46,15 @@
 // memory), or use the tensor cores (wgmma) for the prefill rows.  q.k in
 // float32 is computed with plain FMAs in full float32 (never TF32).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "msa_common.cuh"
 
 namespace {
 
 constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
-constexpr unsigned kFull = 0xffffffffu;
-// NEG_INF of the plain version: -0.7 * float32 max (finite)
-constexpr float kNegInf = -0.7f * 3.402823466e38f;
-constexpr size_t kMaxSmem = 227 * 1024;
-
-// A lane reads K, V and q as pairs of neighbouring dims.
-template <typename T>
-struct PairOf;
-template <>
-struct PairOf<float> {
-  using type = float2;
-};
-template <>
-struct PairOf<__nv_bfloat16> {
-  using type = __nv_bfloat162;
-};
-
-__device__ __forceinline__ float2 to_float2(float2 v) { return v; }
-__device__ __forceinline__ float2 to_float2(__nv_bfloat162 v) {
-  return __bfloat1622float2(v);
-}
-
-template <typename T>
-__device__ __forceinline__ float2 load2(const T* p) {
-  return to_float2(*reinterpret_cast<const typename PairOf<T>::type*>(p));
-}
-
-// Keys of a page per register chunk: K and V of a chunk take 32 32-bit
-// registers a lane, whatever the dtype and head dim, so that the chunk in
-// use and the next one in flight fit without spilling.
-template <typename T, int kP>
-struct ChunkOf {
-  static constexpr int value = 32 / (2 * kP * (int)(sizeof(T) / 2));
-};
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  // butterfly: every lane ends with the same bits
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// The K and V rows of keys c0 .. c0 + kC - 1 of one page (the lane's
-// dims), loads issued and not waited for.
-template <typename T, int kP, int kC>
-__device__ __forceinline__ void load_chunk(
-    typename PairOf<T>::type (&kk)[kC][kP],
-    typename PairOf<T>::type (&vv)[kC][kP], const T* __restrict__ kp,
-    const T* __restrict__ vp, size_t key_stride, int c0, int page, int D,
-    int lane) {
-  using P2 = typename PairOf<T>::type;
-#pragma unroll
-  for (int jj = 0; jj < kC; ++jj) {
-#pragma unroll
-    for (int i = 0; i < kP; ++i) {
-      const int e = 2 * lane + 64 * i;
-      if (c0 + jj < page && e < D) {
-        const size_t off = (size_t)(c0 + jj) * key_stride + e;
-        kk[jj][i] = *reinterpret_cast<const P2*>(kp + off);
-        vv[jj][i] = *reinterpret_cast<const P2*>(vp + off);
-      }
-    }
-  }
-}
 
 // The warp's rows first, first + kWarps, ... < hi of the tile against
-// one chunk of keys of an item's page (kv positions kvbase + c0 + jj):
-// each row's m, l (shared by the warp) and the lane's accumulator dims get
-// an online-softmax update.  kP = pairs of dims a lane holds.
+// one chunk of keys of an item's page (kv positions kvbase + c0 + jj).
 template <typename T, int kP, int kC>
 __device__ __forceinline__ void attend_chunk(
     const typename PairOf<T>::type (&kk)[kC][kP],
@@ -141,88 +64,11 @@ __device__ __forceinline__ void attend_chunk(
     int first, int hi, int D, int page, int c0, int kvbase, int ctx,
     int window, float softcap, float scale, int lane) {
   for (int r = first; r < hi; r += kWarps) {
-    const int qp = q_pos[r];
-    const T* qrow = q + ((size_t)r * n_heads + h) * D;
-    float2 qv[kP];
-#pragma unroll
-    for (int i = 0; i < kP; ++i) {
-      const int e = 2 * lane + 64 * i;
-      qv[i] = make_float2(0.f, 0.f);
-      if (e < D) {
-        qv[i] = load2(qrow + e);
-        qv[i].x *= scale;
-        qv[i].y *= scale;
-      }
-    }
-    float sc[kC];
-    unsigned ok = 0;
-    float cmax = kNegInf;
-#pragma unroll
-    for (int jj = 0; jj < kC; ++jj) {
-      sc[jj] = kNegInf;
-      if (c0 + jj < page) {  // uniform across the warp
-        float part = 0.f;
-#pragma unroll
-        for (int i = 0; i < kP; ++i) {
-          if (2 * lane + 64 * i < D) {
-            const float2 k2 = to_float2(kk[jj][i]);
-            part = fmaf(qv[i].x, k2.x, part);
-            part = fmaf(qv[i].y, k2.y, part);
-          }
-        }
-        float dot = warp_sum(part);
-        if (softcap > 0.f) dot = softcap * tanhf(dot / softcap);
-        const int kv = kvbase + c0 + jj;
-        if (kv <= qp && kv < ctx && (window <= 0 || qp - kv < window)) {
-          sc[jj] = dot;
-          ok |= 1u << jj;
-          cmax = fmaxf(cmax, dot);
-        }
-      }
-    }
-    if (!ok) continue;  // no key of this chunk is visible to the row
     const int rr = r - row0;
-    float* arow = acc + (size_t)rr * D;
-    const float m_old = m_s[rr];
-    const float m_new = fmaxf(m_old, cmax);
-    const float alpha = expf(m_old - m_new);
-    float l = l_s[rr] * alpha;
-    float2 a[kP];
-#pragma unroll
-    for (int i = 0; i < kP; ++i) {
-      const int e = 2 * lane + 64 * i;
-      a[i] = make_float2(0.f, 0.f);
-      if (e < D) {
-        a[i] = *reinterpret_cast<const float2*>(arow + e);
-        a[i].x *= alpha;
-        a[i].y *= alpha;
-      }
-    }
-#pragma unroll
-    for (int jj = 0; jj < kC; ++jj) {
-      if (!((ok >> jj) & 1u)) continue;
-      const float p = expf(sc[jj] - m_new);
-      l += p;
-#pragma unroll
-      for (int i = 0; i < kP; ++i) {
-        if (2 * lane + 64 * i < D) {
-          const float2 v2 = to_float2(vv[jj][i]);
-          a[i].x = fmaf(p, v2.x, a[i].x);
-          a[i].y = fmaf(p, v2.y, a[i].y);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kP; ++i) {
-      const int e = 2 * lane + 64 * i;
-      if (e < D) *reinterpret_cast<float2*>(arow + e) = a[i];
-    }
-    __syncwarp();  // every lane has read m_s/l_s before lane 0 rewrites
-    if (lane == 0) {
-      m_s[rr] = m_new;
-      l_s[rr] = l;
-    }
-    __syncwarp();
+    attend_row<T, kP, kC>(kk, vv, q + ((size_t)r * n_heads + h) * D,
+                          q_pos[r], acc + (size_t)rr * D, m_s + rr, l_s + rr,
+                          D, page, c0, kvbase, ctx, window, softcap, scale,
+                          lane);
   }
 }
 

@@ -1,0 +1,71 @@
+"""Paged flash-decode attention: the wrapper of the hand-written CUDA
+kernel (``csrc/msa_decode.cu``), the counterpart of the JAX package's
+``msa_decode_pallas``.
+
+One new token per sequence, ``q (B, H, D)`` at logical position
+``ctx - 1``, attends through its block table ``(B, NP)`` to the paged
+pools; one block per (sequence, kv head) serves the whole GQA group, so
+each page is read once per group.
+
+A CUDA tensor launches the kernel or raises; nothing falls back to the
+plain version (``ref.msa_decode_ref``), which serves CPU tensors only.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.msa import _build
+
+_SIGNATURES = {
+    "msa_decode_launch": (ctypes.c_int, [ctypes.c_void_p] * 6
+                          + [ctypes.c_int] * 7
+                          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    "msa_decode_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+
+
+def msa_decode_cuda(
+    q: torch.Tensor,              # (B, H, D) bf16 | f32
+    k_pages: torch.Tensor,        # (P, page, KH, D)
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,   # (B, NP) int32
+    context_lens: torch.Tensor,   # (B,) int32 — includes the new token
+    *,
+    window: int = 0,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """Launch the decode kernel on ``torch.cuda.current_stream()``.
+
+    Validates every argument (device, dtype, shape, contiguity, head_dim,
+    alignment) and raises on anything the kernel does not take; raises if
+    the launch reports an error.  Counts launches in
+    ``msa_decode_cuda.launches``."""
+    name = "msa_decode_cuda"
+    _build.check_attention_operands(name, q, k_pages, v_pages, q_dims=3)
+    dev = q.device
+    b, h, d = q.shape
+    _, page, kh, _ = k_pages.shape
+    if b == 0 or kh > 65535:
+        raise ValueError(f"{name}: B={b}, KH={kh} not served")
+    if block_tables.dim() != 2:
+        raise ValueError(f"{name}: block_tables must be (B, NP)")
+    np_ = block_tables.shape[1]
+    _build.check_i32(name, "block_tables", block_tables, (b, np_), dev)
+    _build.check_i32(name, "context_lens", context_lens, (b,), dev)
+
+    lib = _build.load("msa_decode", _SIGNATURES)
+    out = torch.empty_like(q)
+    ptrs = [x.data_ptr() for x in (q, k_pages, v_pages, out, block_tables,
+                                   context_lens)]
+    err = lib.msa_decode_launch(
+        *ptrs, b, h, kh, d, page, np_, int(window), float(softcap),
+        _build.DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.raise_on_error(lib, "msa_decode", err)
+    msa_decode_cuda.launches += 1
+    return out
+
+
+msa_decode_cuda.launches = 0

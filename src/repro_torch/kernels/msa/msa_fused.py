@@ -9,32 +9,24 @@ builds a compacted (sequence, q-tile, kv-page) work-list
 item ranges the kernel walks (:func:`tile_ranges`).
 
 The kernel is built with ``nvcc`` from the sources in this package into
-``build/`` at the repository root on first use and bound with ``ctypes``.
+``build/`` at the repository root on first use and bound with ``ctypes``
+(``_build``).
 A CUDA tensor either launches it or raises; nothing falls back to the
 plain version (``ref.msa_fused_ref``), which serves CPU tensors only.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.kernels.msa import _build
+
 # work-list field order — assembly, packing, and the kernel agree on it
 WL_FIELDS = ("wl_seq", "wl_qtile", "wl_slot", "wl_kvbase", "wl_init",
              "wl_last")
-
-_CSRC = Path(__file__).resolve().parent / "csrc" / "msa_fused.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
-_NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
 def build_worklist(
@@ -153,67 +145,18 @@ def tile_ranges(wl: Dict[str, np.ndarray], n_tiles: int) -> np.ndarray:
 # The CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-_lib = None
+_SIGNATURES = {
+    "msa_fused_launch": (ctypes.c_int, [ctypes.c_void_p] * 12
+                         + [ctypes.c_int] * 9
+                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    "msa_fused_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
 
 
 def load_library() -> ctypes.CDLL:
     """Build (once per source content, into ``build/``) and load the
     kernel library."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    src = _CSRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    so = _BUILD_DIR / f"libmsa_fused-{tag[:16]}.so"
-    if not so.exists():
-        build_library(so)
-    lib = ctypes.CDLL(str(so))
-    lib.msa_fused_launch.restype = ctypes.c_int
-    lib.msa_fused_launch.argtypes = (
-        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    lib.msa_fused_error_string.restype = ctypes.c_char_p
-    lib.msa_fused_error_string.argtypes = [ctypes.c_int]
-    _lib = lib
-    return lib
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in (shutil.which("nvcc"),
-                 home and os.path.join(home, "bin", "nvcc"),
-                 "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("msa_fused: nvcc not found (needs the CUDA toolkit)")
-
-
-def build_library(so: Path) -> None:
-    """Compile ``csrc/msa_fused.cu`` into ``so`` (atomic rename, so
-    concurrent builders never load a half-written file).  The compiler's
-    report (registers, spills per kernel) goes beside it, ``.log``."""
-    so.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_CSRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"msa_fused: nvcc failed ({' '.join(cmd)}):\n"
-                           f"{res.stdout}\n{res.stderr}")
-    so.with_suffix(".log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, so)
-
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _check_i32(name: str, t: torch.Tensor, shape, device) -> None:
-    if (t.dtype != torch.int32 or t.device != device or not t.is_contiguous()
-            or tuple(t.shape) != tuple(shape)):
-        raise ValueError(f"msa_fused_cuda: {name} must be a contiguous int32 "
-                         f"{tuple(shape)} tensor on {device}, got "
-                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return _build.load("msa_fused", _SIGNATURES)
 
 
 def msa_fused_cuda(
@@ -237,45 +180,27 @@ def msa_fused_cuda(
     alignment) and raises on anything the kernel does not take; raises if
     the launch reports an error.  Counts launches in
     ``msa_fused_cuda.launches``."""
-    if q.device.type != "cuda":
-        raise ValueError(f"msa_fused_cuda: q is on {q.device}, not cuda")
+    name = "msa_fused_cuda"
+    _build.check_attention_operands(name, q, k_pages, v_pages, q_dims=3)
     dev = q.device
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"msa_fused_cuda: dtype {q.dtype} not supported "
-                        "(bfloat16, float32)")
-    if q.dim() != 3 or k_pages.dim() != 4:
-        raise ValueError("msa_fused_cuda: q must be (T, H, D) and the pools "
-                         "(P, page, KH, D)")
     t, h, d = q.shape
-    _, page, kh, dk = k_pages.shape
-    for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        if x.dtype != q.dtype or x.device != dev or not x.is_contiguous():
-            raise ValueError(f"msa_fused_cuda: {name} must be a contiguous "
-                             f"{q.dtype} tensor on {dev}")
-        if x.data_ptr() % (2 * x.element_size()):
-            raise ValueError(f"msa_fused_cuda: {name} is not aligned to a "
-                             "pair of elements")
-    if v_pages.shape != k_pages.shape or dk != d:
-        raise ValueError("msa_fused_cuda: pool shapes disagree with q")
-    if t == 0 or kh == 0 or h % kh:
-        raise ValueError(f"msa_fused_cuda: T={t}, H={h}, KH={kh} not served")
-    if d % 2 or d > 256:
-        raise ValueError(f"msa_fused_cuda: head_dim {d} not served (even, "
-                         "at most 256: a lane holds pairs of dims)")
+    _, page, kh, _ = k_pages.shape
+    if t == 0:
+        raise ValueError(f"{name}: T=0 not served")
     q_tile = min(q_tile, t)
     n_tiles = -(-t // q_tile)
     n = q_start.shape[0]
-    _check_i32("q_start", q_start, (n,), dev)
-    _check_i32("q_len", q_len, (n,), dev)
-    _check_i32("context_lens", context_lens, (n,), dev)
-    _check_i32("q_pos", q_pos, (t,), dev)
-    _check_i32("tile_first", tile_first, (n_tiles + 1,), dev)
+    _build.check_i32(name, "q_start", q_start, (n,), dev)
+    _build.check_i32(name, "q_len", q_len, (n,), dev)
+    _build.check_i32(name, "context_lens", context_lens, (n,), dev)
+    _build.check_i32(name, "q_pos", q_pos, (t,), dev)
+    _build.check_i32(name, "tile_first", tile_first, (n_tiles + 1,), dev)
     if len(worklist) != len(WL_FIELDS):
-        raise ValueError(f"msa_fused_cuda: worklist needs {WL_FIELDS}")
+        raise ValueError(f"{name}: worklist needs {WL_FIELDS}")
     wl = dict(zip(WL_FIELDS, worklist))
     w = wl["wl_seq"].shape[0]
     for f in WL_FIELDS:
-        _check_i32(f, wl[f], (w,), dev)
+        _build.check_i32(name, f, wl[f], (w,), dev)
 
     lib = load_library()
     out = torch.empty_like(q)
@@ -284,11 +209,9 @@ def msa_fused_cuda(
         wl["wl_seq"], wl["wl_slot"], wl["wl_kvbase"], tile_first)]
     err = lib.msa_fused_launch(
         *ptrs, t, h, kh, d, page, n, q_tile, n_tiles, int(window),
-        float(softcap), _DTYPE_CODE[q.dtype],
+        float(softcap), _build.DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError("msa_fused_cuda: launch failed: "
-                           + lib.msa_fused_error_string(err).decode())
+    _build.raise_on_error(lib, "msa_fused", err)
     msa_fused_cuda.launches += 1
     return out
 

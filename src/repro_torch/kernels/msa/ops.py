@@ -2,7 +2,8 @@
 
 The device of the tensors picks the path: a CPU tensor runs the plain
 PyTorch version (``ref``), a CUDA tensor launches the hand-written kernel
-or raises.  There is no implementation switch and no fallback.
+(``msa_fused_cuda``, ``msa_prefill_cuda``, ``msa_decode_cuda``) or
+raises.  There is no implementation switch and no fallback.
 
 Page ops work on the layer-stacked pools (L, P + 1, page, KH, D) in place
 (JAX donated the pools into its step and returned new ones).  Index P —
@@ -14,7 +15,45 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.msa import ref
+from repro_torch.kernels.msa.msa_decode import msa_decode_cuda
 from repro_torch.kernels.msa.msa_fused import msa_fused_cuda
+from repro_torch.kernels.msa.msa_prefill import msa_prefill_cuda
+
+
+def _on_cpu(name: str, q: torch.Tensor) -> bool:
+    """True for a CPU tensor (the plain version), False for a CUDA tensor
+    (the kernel); raises for any other device."""
+    if q.device.type == "cpu":
+        return True
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+    return False
+
+
+def msa_prefill(q, k_pages, v_pages, block_tables, context_lens, q_pos,
+                q_lens, *, window: int = 0,
+                softcap: float = 0.0) -> torch.Tensor:
+    """Padded multi-segment prefill over ``(R, QP, H, D)`` chunks.  Any QP
+    is legal: rows at or past ``q_lens`` (padding) come out as exact
+    zeros."""
+    if _on_cpu("msa_prefill", q):
+        return ref.msa_prefill_ref(q, k_pages, v_pages, block_tables,
+                                   context_lens, q_pos, q_lens,
+                                   window=window, softcap=softcap)
+    return msa_prefill_cuda(q, k_pages, v_pages, block_tables, context_lens,
+                            q_pos, q_lens, window=window, softcap=softcap)
+
+
+def msa_decode(q, k_pages, v_pages, block_tables, context_lens, *,
+               window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+    """Paged decode: one ``(B, H, D)`` token per sequence at position
+    ``ctx - 1``."""
+    if _on_cpu("msa_decode", q):
+        return ref.msa_decode_ref(q, k_pages, v_pages, block_tables,
+                                  context_lens, window=window,
+                                  softcap=softcap)
+    return msa_decode_cuda(q, k_pages, v_pages, block_tables, context_lens,
+                           window=window, softcap=softcap)
 
 
 def msa_fused(q, k_pages, v_pages, block_tables, context_lens, q_pos,
@@ -26,12 +65,10 @@ def msa_fused(q, k_pages, v_pages, block_tables, context_lens, q_pos,
     each token's context through ``seq_ids``; on the card the kernel walks
     the compacted work-list (``msa_fused.build_worklist``) tile by tile
     (``tile_first``) with per-sequence ``q_start``/``q_len`` runs."""
-    if q.device.type == "cpu":
+    if _on_cpu("msa_fused", q):
         return ref.msa_fused_ref(q, k_pages, v_pages, block_tables,
                                  context_lens, q_pos, seq_ids, q_valid,
                                  window=window, softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"msa_fused: no kernel for device {q.device}")
     if q_start is None or q_len is None or worklist is None \
             or tile_first is None:
         raise ValueError("msa_fused on cuda needs q_start/q_len, the "

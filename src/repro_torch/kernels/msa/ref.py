@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the Multi-Segment Attention kernels.
 
-They define the contract the hand-written CUDA kernel implements (the
+They define the contract the hand-written CUDA kernels implement (the
 counterpart of ``repro.kernels.msa.ref``):
 
 Paged KV layout: ``k_pages``/``v_pages`` are (P, page, KH, D) pools.  A
@@ -96,6 +96,27 @@ def msa_fused_ref(
     out = msa_prefill_ref(
         q[:, None], k_pages, v_pages, block_tables[sid], context_lens[sid],
         q_pos[:, None], q_valid.to(torch.int32), window=window,
+        softcap=softcap)
+    return out[:, 0]
+
+
+def msa_decode_ref(
+    q: torch.Tensor,              # (B, H, D) — one new token per sequence
+    k_pages: torch.Tensor,        # (P, page, KH, D)
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,   # (B, NP) int32
+    context_lens: torch.Tensor,   # (B,) int32 — includes the new token
+    *,
+    window: int = 0,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """Plain paged decode: :func:`msa_prefill_ref` over one row per
+    sequence at logical position ``ctx - 1``."""
+    b = q.shape[0]
+    q_pos = (context_lens - 1)[:, None]
+    out = msa_prefill_ref(
+        q[:, None], k_pages, v_pages, block_tables, context_lens, q_pos,
+        torch.ones((b,), dtype=torch.int32, device=q.device), window=window,
         softcap=softcap)
     return out[:, 0]
 

@@ -1,21 +1,30 @@
 """Inference engine: one device step executing a mixed batch of
 multi-segment prefill chunks and decode tokens (port of
-``repro.serving.engine``, single-device ``attn_mode="fused"`` path).
+``repro.serving.engine``, single-device, ``attn_mode`` "fused" and
+"split").
 
 All prefill chunks and decode rows share one token stream for the
-non-attention layers, and attention runs as **one** dispatch per layer
-over the paged KV pool: the flattened varlen ``(T, H, D)`` stream with
-per-sequence ``q_start``/``q_len`` runs, decode rows being runs of length
-1.  On the card that dispatch is the hand-written CUDA kernel
-(``repro_torch.kernels.msa.msa_fused_cuda``); on the CPU it is the plain
-PyTorch version.
+non-attention layers.  Attention runs over the paged KV pool in one of
+two layouts:
+
+* ``"fused"``: **one** dispatch per layer over the flattened varlen
+  ``(T, H, D)`` stream with per-sequence ``q_start``/``q_len`` runs,
+  decode rows being runs of length 1 (``msa_fused``);
+* ``"split"``: two dispatches per layer over the padded layout, the R
+  prefill chunks as ``(R, QP, H, D)`` (``msa_prefill``) and the B decode
+  rows as ``(B, H, D)`` (``msa_decode``).
+
+On the card each dispatch is a hand-written CUDA kernel
+(``repro_torch.kernels.msa.msa_{fused,prefill,decode}_cuda``); on the
+CPU it is the plain PyTorch version.
 
 Step shapes come from the same occupancy-bucket lattice as the reference
-(``derive_bucket_lattice``): each step is padded to a ``(t_bucket,
+(``derive_bucket_lattice``): a fused step is padded to a ``(t_bucket,
 np_bucket)`` of the lattice and its work-list to a power-of-two
-``w_bucket``, so ``bucket_counts`` and the step counts match the JAX
-engine.  PyTorch runs eagerly; ``jit_traces`` counts the distinct
-buckets first seen (the place a captured CUDA graph per bucket will go).
+``w_bucket``; a split step always runs at ``(R * QP + B, NP)``.  So
+``bucket_counts`` and the step counts match the JAX engine.  PyTorch
+runs eagerly; ``jit_traces`` counts the distinct buckets first seen (the
+place a captured CUDA graph per bucket will go).
 
 Host side, ``build_inputs`` assembles every int32 input into one flat
 buffer (``pack_layout_for``) moved to the device in one copy, plus the
@@ -23,10 +32,9 @@ swap payloads.  Copy-on-write page forks and host-tier swap-ins are
 queued and folded into the step as padded index arrays; overflow past
 the static buckets goes through the eager paths.
 
-Later slices of the port bring ``attn_mode="split"`` (the prefill and
-decode kernels), multi-token decode (``n_iter > 1``), quantized swap
-payloads and pool snapping, MoE, and sharded serving; each raises
-``NotImplementedError`` here.
+Later slices of the port bring multi-token decode (``n_iter > 1``),
+quantized swap payloads and pool snapping, MoE, and sharded serving;
+each raises ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -45,7 +53,9 @@ from repro_torch.kernels.msa import (
     apply_page_copies,
     apply_swap_ins,
     build_worklist,
+    msa_decode,
     msa_fused,
+    msa_prefill,
     pad_worklist,
     tile_ranges,
     write_kv_pages,
@@ -92,20 +102,28 @@ def derive_bucket_lattice(ecfg: "EngineConfig"
 def pack_layout_for(ecfg: "EngineConfig", t_bucket: int, np_bucket: int,
                     w_bucket: int) -> Tuple[List[Tuple[str, int, int]], int]:
     """(name, offset, size) triples of the flat int32 pack buffer for one
-    occupancy bucket of the fused single-device layout, plus its total
-    length.  Beside the reference's fields it carries ``tile_first``,
-    the per-q-tile item ranges the CUDA kernel walks."""
+    occupancy bucket of the single-device layout, plus its total length.
+    Beside the reference's fused fields it carries ``tile_first``, the
+    per-q-tile item ranges the fused CUDA kernel walks; the split layout
+    (``w_bucket`` unused) is the reference's as it is."""
     e = ecfg
     R, B = e.max_prefills, e.max_decodes
-    t, n = t_bucket, R + B
-    n_tiles = -(-t // min(e.q_tile, t))
-    fields = [("tokens", t), ("positions", t), ("valid", t),
-              ("write_slot", t), ("write_off", t), ("seq_ids", t),
-              ("sel", R + B), ("qstart", n), ("qlen", n), ("ctx", n),
-              ("bt", n * np_bucket)]
-    fields += [(f, w_bucket) for f in WL_FIELDS]
-    fields += [("tile_first", n_tiles + 1),
-               ("copy_src", e.max_instep_copies),
+    if e.attn_mode == "fused":
+        t, n = t_bucket, R + B
+        n_tiles = -(-t // min(e.q_tile, t))
+        fields = [("tokens", t), ("positions", t), ("valid", t),
+                  ("write_slot", t), ("write_off", t), ("seq_ids", t),
+                  ("sel", R + B), ("qstart", n), ("qlen", n), ("ctx", n),
+                  ("bt", n * np_bucket)]
+        fields += [(f, w_bucket) for f in WL_FIELDS]
+        fields += [("tile_first", n_tiles + 1)]
+    else:
+        t, NP = R * e.max_chunk + B, e.max_blocks_per_seq
+        fields = [("tokens", t), ("positions", t), ("valid", t),
+                  ("write_slot", t), ("write_off", t), ("sel", R + B),
+                  ("qlens", R), ("ctx_pre", R), ("ctx_dec", B),
+                  ("bt_pre", R * NP), ("bt_dec", B * NP)]
+    fields += [("copy_src", e.max_instep_copies),
                ("copy_dst", e.max_instep_copies),
                ("swap_k_dst", e.max_instep_swaps),
                ("swap_v_dst", e.max_instep_swaps)]
@@ -131,8 +149,9 @@ class EngineConfig:
     # blocks a head instead of one
     q_tile: int = 16
     # "fused": one varlen attention dispatch per layer over the flattened
-    # (T, H, D) mixed stream, with the occupancy bucket lattice.  "split"
-    # (padded prefill + decode kernels) comes with a later slice.
+    # (T, H, D) mixed stream, with the occupancy bucket lattice.
+    # "split": the padded two-dispatch layout (prefill chunks + decode
+    # rows), one fixed (R*QP + B, NP) shape.
     attn_mode: str = "fused"
     # occupancy bucket lattices; empty tuples derive the defaults (see
     # derive_bucket_lattice)
@@ -217,10 +236,9 @@ class Engine:
         if cfg.family not in ("dense", "vlm") or cfg.enc_dec:
             raise ValueError(f"the engine serves decoder-only token LMs, "
                              f"not family {cfg.family!r}")
-        if ecfg.attn_mode != "fused":
-            raise NotImplementedError(
-                f"attn_mode={ecfg.attn_mode!r} comes with the split-layout "
-                "slice of the port (msa_prefill/msa_decode kernels)")
+        if ecfg.attn_mode not in ("fused", "split"):
+            raise ValueError(f"attn_mode {ecfg.attn_mode!r} is neither "
+                             "'fused' nor 'split'")
         if ecfg.swap_payload != "fp" or ecfg.snap != "off":
             raise NotImplementedError(
                 "quantized swap payloads and pool snapping come with the "
@@ -260,6 +278,7 @@ class Engine:
             (L, ecfg.max_instep_swaps, ecfg.page_size, cfg.n_kv_heads,
              cfg.head_dim), dtype=self.dtype, device=self.device)
         self.n_seqs = ecfg.max_prefills + ecfg.max_decodes
+        self.t_max = ecfg.max_prefills * ecfg.max_chunk + ecfg.max_decodes
         self.token_buckets, self.np_buckets = derive_bucket_lattice(ecfg)
         self._t_bucket_set = set(self.token_buckets)
         self._np_bucket_set = set(self.np_buckets)
@@ -293,12 +312,7 @@ class Engine:
         it names an entry of THIS engine's lattice that fits the plan;
         anything else falls back to the smallest fitting own-lattice
         entry, so no off-lattice variant appears and a legal plan always
-        fits."""
-        need_t = plan.n_compute_tokens
-        tb = plan.t_bucket
-        if tb not in self._t_bucket_set or tb < need_t:
-            tb = next((b for b in self.token_buckets if b >= need_t),
-                      self.token_buckets[-1])
+        fits.  A split step always runs at ``(R * QP + B, NP)``."""
         bs = self.ecfg.page_size
         need_p = 1
         for c in plan.prefills:
@@ -313,6 +327,13 @@ class Engine:
             raise ValueError(
                 f"a sequence needs {need_p} pages > max_blocks_per_seq="
                 f"{self.ecfg.max_blocks_per_seq}")
+        if self.ecfg.attn_mode != "fused":
+            return self.t_max, self.ecfg.max_blocks_per_seq
+        need_t = plan.n_compute_tokens
+        tb = plan.t_bucket
+        if tb not in self._t_bucket_set or tb < need_t:
+            tb = next((b for b in self.token_buckets if b >= need_t),
+                      self.token_buckets[-1])
         nb = plan.np_bucket
         if nb not in self._np_bucket_set or nb < need_p:
             nb = next((b for b in self.np_buckets if b >= need_p),
@@ -323,11 +344,13 @@ class Engine:
     # ------------------------------------------------------------------
     def _step_impl(self, params, inp, t_bucket: int, np_bucket: int,
                    w_bucket: int):
-        """One fused step on the device: in-step page ops, then per layer
-        norm -> q/k/v -> rope -> KV write -> ONE ``msa_fused`` dispatch ->
+        """One step on the device: in-step page ops, then per layer
+        norm -> q/k/v -> rope -> KV write -> attention (ONE ``msa_fused``
+        dispatch, or ``msa_prefill`` + ``msa_decode`` in split mode) ->
         wo -> MLP, then the final norm, the logits at ``sel`` and the
         greedy argmax on the device."""
         cfg, e = self.cfg, self.ecfg
+        fused = e.attn_mode == "fused"
         inp = self._unpack(inp, t_bucket, np_bucket, w_bucket)
         # swap-ins land first (they commit pages a COW fork in the same
         # round may use as its donor), then copies; both precede the KV
@@ -340,10 +363,15 @@ class Engine:
         blocks = params["blocks"]
         x = params["embed"][inp["tokens"].long()]        # (T, d)
         pos = inp["positions"]
-        worklist = tuple(inp[f] for f in WL_FIELDS)
-        tq = min(e.q_tile, t_bucket)
         T, d = x.shape
         H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        if fused:
+            worklist = tuple(inp[f] for f in WL_FIELDS)
+            tq = min(e.q_tile, t_bucket)
+        else:
+            R, QP = e.max_prefills, e.max_chunk
+            RQP = R * QP
+            qpos_pre = pos[:RQP].view(R, QP)
         for l in range(cfg.n_layers):
             h = rms_norm(x, blocks["attn_norm"][l], cfg.norm_eps)
             q = (h @ blocks["wq"][l].reshape(d, H * hd)).view(T, H, hd)
@@ -355,13 +383,23 @@ class Engine:
             kp, vp = self.k_pools[l], self.v_pools[l]
             write_kv_pages(kp, vp, k_new, v_new, inp["write_slot"],
                            inp["write_off"], inp["valid"])
-            # ONE varlen dispatch over the whole mixed stream
-            attn = msa_fused(
-                q, kp, vp, inp["bt"], inp["ctx"], pos, inp["seq_ids"],
-                inp["valid"], q_start=inp["qstart"], q_len=inp["qlen"],
-                worklist=worklist, tile_first=inp["tile_first"],
-                window=self.windows[l], softcap=cfg.attn_logit_softcap,
-                q_tile=tq)
+            if fused:
+                # ONE varlen dispatch over the whole mixed stream
+                attn = msa_fused(
+                    q, kp, vp, inp["bt"], inp["ctx"], pos, inp["seq_ids"],
+                    inp["valid"], q_start=inp["qstart"], q_len=inp["qlen"],
+                    worklist=worklist, tile_first=inp["tile_first"],
+                    window=self.windows[l], softcap=cfg.attn_logit_softcap,
+                    q_tile=tq)
+            else:
+                op = msa_prefill(
+                    q[:RQP].view(R, QP, H, hd), kp, vp, inp["bt_pre"],
+                    inp["ctx_pre"], qpos_pre, inp["qlens"],
+                    window=self.windows[l], softcap=cfg.attn_logit_softcap)
+                od = msa_decode(
+                    q[RQP:], kp, vp, inp["bt_dec"], inp["ctx_dec"],
+                    window=self.windows[l], softcap=cfg.attn_logit_softcap)
+                attn = torch.cat([op.view(RQP, H, hd), od])
             x = x + attn.reshape(T, H * hd) @ blocks["wo"][l].reshape(
                 H * hd, d)
             h2 = rms_norm(x, blocks["mlp_norm"][l], cfg.norm_eps)
@@ -388,6 +426,13 @@ class Engine:
                 "multi-token decode (n_iter > 1) comes with a later slice "
                 "of the port")
         t_b, np_b = self.buckets_for(plan)
+        if self.ecfg.attn_mode != "fused":
+            layout, size = self.pack_layout(t_b, np_b, 0)
+            buf = np.zeros((size,), np.int32)
+            views = {name: buf[off:off + size_]
+                     for name, off, size_ in layout}
+            self._assemble_vectorized(plan, views)
+            return self._pack_inputs(buf, views), (t_b, np_b, 0)
         # one derivation of the varlen metadata feeds both the packed
         # buffer and the work-list builder
         fields = self._assemble_fused(plan, t_b, np_b)
@@ -405,10 +450,15 @@ class Engine:
         views = {name: buf[off:off + size_] for name, off, size_ in layout}
         for name, arr in fields.items():
             views[name][:] = arr.reshape(-1)
+        return self._pack_inputs(buf, views), (t_b, np_b, w_b)
+
+    def _pack_inputs(self, buf: np.ndarray, views: Dict[str, np.ndarray]
+                     ) -> Dict[str, torch.Tensor]:
+        """Fold the queued page ops into the packed buffer and move it to
+        the device in one copy, beside the two swap payloads."""
         ops = self._fold_page_ops(views)
-        inp = {"pack": torch.from_numpy(buf).to(self.device),
-               "swap_k": ops["swap_k"], "swap_v": ops["swap_v"]}
-        return inp, (t_b, np_b, w_b)
+        return {"pack": torch.from_numpy(buf).to(self.device),
+                "swap_k": ops["swap_k"], "swap_v": ops["swap_v"]}
 
     def _unpack(self, inp: Dict[str, torch.Tensor], t_bucket: int,
                 np_bucket: int, w_bucket: int) -> Dict[str, torch.Tensor]:
@@ -418,7 +468,13 @@ class Engine:
         buf = inp["pack"]
         out = {name: buf[off:off + size] for name, off, size in layout}
         out["valid"] = out["valid"].bool()
-        out["bt"] = out["bt"].view(self.n_seqs, np_bucket)
+        e = self.ecfg
+        if e.attn_mode == "fused":
+            out["bt"] = out["bt"].view(self.n_seqs, np_bucket)
+        else:
+            NP = e.max_blocks_per_seq
+            out["bt_pre"] = out["bt_pre"].view(e.max_prefills, NP)
+            out["bt_dec"] = out["bt_dec"].view(e.max_decodes, NP)
         out["swap_k"] = inp["swap_k"]
         out["swap_v"] = inp["swap_v"]
         return out
@@ -497,6 +553,73 @@ class Engine:
                     write_slot=write_slot, write_off=write_off,
                     seq_ids=seq_ids, sel=sel, qstart=qstart, qlen=qlen,
                     ctx=ctx, bt=bt)
+
+    def _assemble_vectorized(self, plan: StepPlan,
+                             v: Dict[str, np.ndarray]) -> None:
+        """Vectorized assembly of the split (two-dispatch) layout: numpy
+        scatter/gather over per-request arrays cached on ``Request``
+        (``token_array`` / ``slot_array``) into the packed-buffer views
+        ``v``; Python loops run only over requests (≤ R prefills + B
+        decodes), never over tokens.  Chunk r occupies stream rows
+        ``r*QP .. r*QP + n``, decode row i row ``R*QP + i``.  Padding
+        decode rows carry ``ctx_dec = 1`` and an all-zero block table:
+        the decode kernel reads one page for them and they are never
+        selected."""
+        e = self.ecfg
+        bs = e.page_size
+        R, QP, B, NP = e.max_prefills, e.max_chunk, e.max_decodes, \
+            e.max_blocks_per_seq
+        tokens = v["tokens"]
+        positions = v["positions"]
+        valid = v["valid"]
+        write_slot = v["write_slot"]
+        write_off = v["write_off"]
+        bt_pre = v["bt_pre"].reshape(R, NP)
+        ctx_pre = v["ctx_pre"]
+        qlens = v["qlens"]
+        bt_dec = v["bt_dec"].reshape(B, NP)
+        ctx_dec = v["ctx_dec"]
+        ctx_dec[:] = 1
+        sel = v["sel"]
+
+        assert len(plan.prefills) <= R and len(plan.decodes) <= B
+        for r, chunk in enumerate(plan.prefills):
+            req = chunk.req
+            pos = np.asarray(chunk.positions, np.int32)
+            n = pos.shape[0]
+            assert n <= QP, (n, QP)
+            base = r * QP
+            slots = req.slot_array()
+            tokens[base:base + n] = req.token_array()[pos]
+            positions[base:base + n] = pos
+            valid[base:base + n] = True
+            write_slot[base:base + n] = slots[pos // bs]
+            write_off[base:base + n] = pos % bs
+            qlens[r] = n
+            ctx_pre[r] = pos[-1] + 1
+            k = min(NP, slots.shape[0])
+            bt_pre[r, :k] = slots[:k]
+            sel[r] = base + n - 1
+
+        nd = len(plan.decodes)
+        if nd:
+            p = np.fromiter(
+                (req.prompt_len + len(req.generated) - 1
+                 for req in plan.decodes), np.int32, nd)
+            tokens[R * QP:R * QP + nd] = np.fromiter(
+                (req.generated[-1] for req in plan.decodes), np.int32, nd)
+            positions[R * QP:R * QP + nd] = p
+            valid[R * QP:R * QP + nd] = True
+            write_slot[R * QP:R * QP + nd] = np.fromiter(
+                (req.slot_array()[pi // bs]
+                 for req, pi in zip(plan.decodes, p)), np.int32, nd)
+            write_off[R * QP:R * QP + nd] = p % bs
+            ctx_dec[:nd] = p + 1
+            for i, req in enumerate(plan.decodes):
+                slots = req.slot_array()
+                k = min(NP, slots.shape[0])
+                bt_dec[i, :k] = slots[:k]
+            sel[R:R + nd] = R * QP + np.arange(nd, dtype=np.int32)
 
     def _fold_page_ops(self, views: Dict[str, np.ndarray]
                        ) -> Dict[str, torch.Tensor]:
@@ -711,7 +834,8 @@ class Engine:
         if key not in self.buckets_used:
             self.buckets_used.add(key)
             self.jit_traces += 1
-        self.attn_dispatches += self.cfg.n_layers
+        fused = self.ecfg.attn_mode == "fused"
+        self.attn_dispatches += self.cfg.n_layers * (1 if fused else 2)
         emitted = plan.emitted_tokens
         self.valid_token_rows += emitted
         self.total_token_rows += t_b

@@ -270,6 +270,10 @@ class AsymCacheServer:
                 raise NotImplementedError(
                     "sharded serving (n_shards > 1) comes with the "
                     "sharding slice of the port")
+            if ecfg.attn_mode != "fused":
+                # multi-token decode is a fused-layout path; the split
+                # layout runs one token a step, as in the reference
+                scfg.scheduler.max_decode_steps = 1
             if scfg.scheduler.max_decode_steps > 1:
                 raise NotImplementedError(
                     "multi-token decode (max_decode_steps > 1) comes with "

@@ -1,8 +1,14 @@
-"""The port on an NVIDIA card: the hand-written fused MSA kernel against its
-plain PyTorch version on the same inputs, over the shapes of the JAX
-package's kernel sweep (``tests/test_fused.py``: page 8, head_dim 16, q
-tiles 4/8/16, GQA ratios, window, softcap, bucket slack), and the whole
-engine on the card against the same engine on the CPU.
+"""The port on an NVIDIA card: the hand-written MSA kernels against their
+plain PyTorch versions on the same inputs, and the whole engine on the
+card against the same engine on the CPU, in the fused and the split
+layout.  The fused kernel runs over the shapes of the JAX package's
+kernel sweep (``tests/test_fused.py``: page 8, head_dim 16, q tiles
+4/8/16, GQA ratios, window, softcap, bucket slack); the prefill and
+decode kernels over those of ``tests/test_kernels.py`` (GQA ratios, head
+dims 16-64, pages 8/16, window, softcap, ragged chunks, a ctx 1 row),
+then at head dims 64/128/256 and pages 8/16/32 with all-padding chunks
+and padding decode rows (ctx 1, slot 0) as the serving engine makes
+them.
 
 Marked ``cuda``; each test skips without a card.  Run on the card with
 ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.  Imports no JAX,
@@ -16,10 +22,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.msa import (WL_FIELDS, build_worklist, msa_fused,
-                                     msa_fused_cuda, pad_worklist,
+from repro_torch.kernels.msa import (WL_FIELDS, build_worklist, msa_decode,
+                                     msa_decode_cuda, msa_fused,
+                                     msa_fused_cuda, msa_prefill,
+                                     msa_prefill_cuda, pad_worklist,
                                      tile_ranges)
-from repro_torch.kernels.msa.ref import msa_fused_ref
+from repro_torch.kernels.msa.ref import (msa_decode_ref, msa_fused_ref,
+                                         msa_prefill_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -131,6 +140,174 @@ def test_kernel_head_dims_and_pages_on_card(dev, dtype, D, page, q_tile):
     assert err <= TOL[dtype], err
 
 
+# ---------------------------------------------------------------------------
+# the split layout's kernels
+# ---------------------------------------------------------------------------
+
+def _to(dev, dtype, *arrays):
+    return [torch.from_numpy(np.asarray(a)).to(dev, dtype)
+            if np.asarray(a).dtype == np.float32
+            else torch.from_numpy(np.asarray(a)).to(dev) for a in arrays]
+
+
+def _prefill_vs_plain(dev, dtype, q, kp, vp, bt, ctx, q_pos, q_lens, *,
+                      window=0, softcap=0.0, q_tile=16):
+    """Kernel vs plain version on the card; padding rows exact zeros, and
+    the same bits whatever the q tile."""
+    args = _to(dev, dtype, q, kp, vp, bt, ctx, q_pos, q_lens)
+    kw = dict(window=window, softcap=softcap)
+    before = msa_prefill_cuda.launches
+    got = msa_prefill(*args, **kw)          # the kernel's own q tile
+    other = msa_prefill_cuda(*args, q_tile=q_tile, **kw)
+    torch.cuda.synchronize()
+    assert msa_prefill_cuda.launches == before + 2
+    assert torch.equal(got, other), "result depends on the q tile"
+    want = msa_prefill_ref(*args, **kw)
+    assert got.dtype == dtype and got.shape == want.shape
+    pad = torch.arange(q.shape[1], device=dev)[None, :] \
+        >= args[6][:, None]
+    assert torch.all(got[pad] == 0), "padding rows not exact zeros"
+    return float((got.float() - want.float()).abs().max())
+
+
+def _decode_vs_plain(dev, dtype, q, kp, vp, bt, ctx, *, window=0,
+                     softcap=0.0):
+    args = _to(dev, dtype, q, kp, vp, bt, ctx)
+    kw = dict(window=window, softcap=softcap)
+    before = msa_decode_cuda.launches
+    got = msa_decode(*args, **kw)
+    torch.cuda.synchronize()
+    assert msa_decode_cuda.launches == before + 1
+    want = msa_decode_ref(*args, **kw)
+    assert got.dtype == dtype and got.shape == want.shape
+    return float((got.float() - want.float()).abs().max())
+
+
+def _f32(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("h,kh,d", [(4, 2, 32), (4, 4, 16), (8, 2, 64)])
+@pytest.mark.parametrize("page,q_tile", [(8, 8), (16, 4)])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (12, 0.0), (0, 30.0)])
+def test_prefill_kernel_matches_plain_on_card(dev, dtype, h, kh, d, page,
+                                              q_tile, window, softcap):
+    """The tests/test_kernels.py:34 sweep: a two-segment chunk reaching
+    the end of a full context and a ragged contiguous one."""
+    rng = np.random.default_rng(h * 100 + d + page)
+    R, QP, NP, P = 2, 16, 5, 32
+    q_pos = np.stack([
+        np.concatenate([np.arange(3, 3 + QP // 2),
+                        np.arange(NP * page - QP // 2, NP * page)]),
+        np.arange(QP)]).astype(np.int32)
+    err = _prefill_vs_plain(
+        dev, dtype, _f32(rng, R, QP, h, d), _f32(rng, P, page, kh, d),
+        _f32(rng, P, page, kh, d),
+        rng.integers(0, P, (R, NP)).astype(np.int32),
+        np.asarray([NP * page, 2 * page + 3], np.int32), q_pos,
+        np.asarray([QP, QP - 3], np.int32), window=window, softcap=softcap,
+        q_tile=q_tile)
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("h,kh,d", [(4, 2, 32), (8, 8, 16), (8, 1, 64)])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (10, 0.0), (0, 30.0)])
+def test_decode_kernel_matches_plain_on_card(dev, dtype, h, kh, d, window,
+                                             softcap):
+    """The tests/test_kernels.py:63 sweep, with a ctx 1 row."""
+    rng = np.random.default_rng(h * 10 + d + window)
+    B, NP, P, page = 3, 6, 24, 8
+    err = _decode_vs_plain(
+        dev, dtype, _f32(rng, B, h, d), _f32(rng, P, page, kh, d),
+        _f32(rng, P, page, kh, d),
+        rng.integers(0, P, (B, NP)).astype(np.int32),
+        np.asarray([NP * page, 17, 1], np.int32), window=window,
+        softcap=softcap)
+    assert err <= TOL[dtype], err
+
+
+def _serving_split_case(rng, *, R, QP, B, n_dec, H, KH, D, page, NP):
+    """A split step as the engine builds it, at larger shapes: multi-segment
+    chunks on disjoint shuffled pages (one ragged, one all padding with
+    q_lens 0), then n_dec decode rows and B - n_dec padding decode rows
+    (ctx 1, an all-zero block table)."""
+    ctxs = rng.integers(QP, NP * page + 1, R + n_dec)
+    n_pages = -(-ctxs // page)
+    P = int(n_pages.sum()) + 1
+    perm = rng.permutation(P)
+    tables = np.zeros((R + n_dec, NP), np.int32)
+    off = 0
+    for s, k in enumerate(n_pages):
+        tables[s, :k] = perm[off:off + k]
+        off += k
+    q_pos = np.zeros((R, QP), np.int32)
+    q_lens = np.full((R,), QP, np.int32)
+    q_lens[1] = QP // 2 + 3
+    q_lens[2] = 0
+    for r in range(R):
+        c = int(ctxs[r])
+        # two segments: a recompute of an evicted stretch and the tail
+        n = int(q_lens[r])
+        a = rng.integers(0, max(1, c - QP))
+        head = n // 3
+        pos = np.concatenate([np.arange(a, a + head),
+                              np.arange(c - (n - head), c)])
+        q_pos[r, :n] = np.unique(pos)[:n] if n else pos
+    bt_dec = np.zeros((B, NP), np.int32)
+    bt_dec[:n_dec] = tables[R:]
+    ctx_dec = np.ones((B,), np.int32)
+    ctx_dec[:n_dec] = ctxs[R:]
+    return dict(
+        pre=(_f32(rng, R, QP, H, D), _f32(rng, P, page, KH, D),
+             _f32(rng, P, page, KH, D), tables[:R],
+             ctxs[:R].astype(np.int32), q_pos, q_lens),
+        dec=(_f32(rng, B, H, D), bt_dec, ctx_dec))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("page", [8, 16, 32])
+def test_split_kernels_head_dims_and_pages_on_card(dev, dtype, D, page):
+    """Both split kernels at the serving engine's layout: head dims 64,
+    128, 256 (every lane layout), pages 8/16/32, Llama's GQA ratio, an
+    all-padding chunk and padding decode rows, a window and a softcap."""
+    rng = np.random.default_rng(D + page)
+    c = _serving_split_case(rng, R=4, QP=48, B=24, n_dec=13, H=8, KH=2, D=D,
+                            page=page, NP=256 // page)
+    q, kp, vp = c["pre"][:3]
+    for window, softcap in ((0, 0.0), (40, 0.0), (0, 30.0)):
+        err = _prefill_vs_plain(dev, dtype, *c["pre"], window=window,
+                                softcap=softcap)
+        assert err <= TOL[dtype], (window, softcap, err)
+        qd, bt_dec, ctx_dec = c["dec"]
+        err = _decode_vs_plain(dev, dtype, qd, kp, vp, bt_dec, ctx_dec,
+                               window=window, softcap=softcap)
+        assert err <= TOL[dtype], (window, softcap, err)
+
+
+def test_prefill_kernel_all_padding_reads_nothing_and_writes_zeros(dev):
+    """A decode-only step's prefill dispatch: every chunk is padding
+    (q_lens 0, block tables pointing far outside the pool).  The kernel
+    reads no page (an out-of-pool slot would fault) and writes exact
+    zeros."""
+    rng = np.random.default_rng(7)
+    R, QP, H, KH, D, page, NP = 4, 128, 32, 8, 128, 16, 256
+    q = torch.from_numpy(_f32(rng, R, QP, H, D)).to(dev, torch.bfloat16)
+    kp = torch.zeros((2, page, KH, D), dtype=torch.bfloat16, device=dev)
+    bt = torch.full((R, NP), 1 << 30, dtype=torch.int32, device=dev)
+    ctx = torch.full((R,), 4096, dtype=torch.int32, device=dev)
+    q_pos = torch.zeros((R, QP), dtype=torch.int32, device=dev)
+    q_lens = torch.zeros((R,), dtype=torch.int32, device=dev)
+    out = msa_prefill_cuda(q, kp, kp, bt, ctx, q_pos, q_lens)
+    torch.cuda.synchronize()
+    assert torch.all(out == 0)
+
+
 def test_engine_on_card_matches_cpu(dev):
     """The port's server on the card and on the CPU, same weights and
     workload (float32 smoke model): the same greedy tokens and step
@@ -164,9 +341,56 @@ def test_engine_on_card_matches_cpu(dev):
     (wc, rc, lc), (wg, rg, lg) = runs
     assert lc == 0 and lg == cfg.n_layers * rg["steps"]
     assert rg["steps"] == rc["steps"] and rg["evictions"] == rc["evictions"]
+    _same_results(wg, wc)
+
+
+def _same_results(wg, wc):
     for a, b in zip(wg, wc):
         assert a.status == b.status == "finished"
         assert a.generated == b.generated
         scale = float(np.max(np.abs(b.first_logits)))
         assert float(np.max(np.abs(a.first_logits - b.first_logits))) \
             <= 1e-4 * scale
+
+
+def test_split_engine_on_card_matches_cpu(dev):
+    """The split layout on the card against the split layout on the CPU
+    (float32 smoke model, evictions and host-tier swaps): the same greedy
+    tokens and step counts, each layer through one prefill
+    and one decode kernel launch a step on the card, and never the fused
+    kernel; first logits within 1e-4 of their scale."""
+    from repro_torch.configs import get_smoke_config, scaled_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import (AsymCacheServer, EngineConfig,
+                                     SchedulerConfig, ServerConfig,
+                                     WorkloadConfig, multi_turn_workload)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = scaled_config(get_smoke_config("llama31-8b"), dtype="float32")
+    cpu = init_params(cfg, seed=0, device="cpu")
+    gpu = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
+               else v.to(dev)) for k, v in cpu.items()}
+    runs = []
+    for params, device in ((cpu, "cpu"), (gpu, dev)):
+        scfg = ServerConfig(num_blocks=32, block_size=16, clock="model",
+                            host_blocks=16, attn_mode="split",
+                            scheduler=SchedulerConfig(
+                                token_budget=128, max_chunk=64,
+                                max_prefills=2, max_decodes=8))
+        ecfg = EngineConfig(num_pages=32, page_size=16, max_prefills=2,
+                            max_chunk=64, max_decodes=8, attn_mode="split")
+        wl = multi_turn_workload(WorkloadConfig(
+            n_sessions=3, turns_per_session=(2, 3), first_ctx_len=(96, 180),
+            output_len=(12, 30), qps=1.0, seed=3))
+        srv = AsymCacheServer(cfg, params, scfg, ecfg=ecfg, device=device)
+        before = (msa_prefill_cuda.launches, msa_decode_cuda.launches,
+                  msa_fused_cuda.launches)
+        res = srv.run(wl)
+        after = (msa_prefill_cuda.launches, msa_decode_cuda.launches,
+                 msa_fused_cuda.launches)
+        runs.append((wl, res, [a - b for a, b in zip(after, before)]))
+    (wc, rc, lc), (wg, rg, lg) = runs
+    assert lc == [0, 0, 0]
+    assert lg == [cfg.n_layers * rg["steps"]] * 2 + [0]
+    assert rg["steps"] == rc["steps"] and rg["evictions"] == rc["evictions"]
+    assert rg["attn_dispatches_per_step"] == 2 * cfg.n_layers
+    _same_results(wg, wc)

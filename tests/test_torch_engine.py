@@ -1,8 +1,9 @@
 """Port vs reference for the serving engine: the occupancy lattice and the
-packed layout, one fixed mixed StepPlan (a multi-segment prefill chunk
-plus decode rows) through both engines on the same weights and pools,
-in-step vs eager page ops inside the port, and the paths a later slice
-brings, which raise."""
+packed layout (fused and split), one fixed mixed StepPlan (a
+multi-segment prefill chunk plus decode rows) through both engines on the
+same weights and pools in each layout, the port's fused and split
+layouts on one plan, in-step vs eager page ops inside the port, and the
+paths a later slice brings, which raise."""
 import jax
 import numpy as np
 import pytest
@@ -35,14 +36,26 @@ def small():
     return cfg, jp, tp
 
 
-def _server(M, cfg, params, **kw):
+def _server(M, cfg, params, attn_mode="fused", **kw):
     scfg = M.ServerConfig(
         policy="asymcache", num_blocks=NB, block_size=16, clock="model",
+        attn_mode=attn_mode,
         scheduler=M.SchedulerConfig(token_budget=128, max_chunk=64,
                                     max_prefills=2, max_decodes=8))
     ecfg = M.EngineConfig(num_pages=NB, page_size=16, max_prefills=2,
-                          max_chunk=64, max_decodes=8)
+                          max_chunk=64, max_decodes=8, attn_mode=attn_mode)
     return M.AsymCacheServer(cfg, params, scfg, ecfg=ecfg, **kw)
+
+
+def _mixed_plan(cfg, tp, attn_mode):
+    """A port server driven to a step whose plan mixes a multi-segment
+    prefill chunk (gapped positions) with decode rows."""
+    tsrv = _server(P, cfg, tp, attn_mode=attn_mode, device="cpu")
+    tsrv.run(_workload(P), max_steps=72)
+    plan = tsrv.sched.schedule(tsrv.now)
+    assert plan.prefills and plan.decodes
+    assert any(np.any(np.diff(c.positions) > 1) for c in plan.prefills)
+    return tsrv, plan
 
 
 def _workload(M):
@@ -54,16 +67,25 @@ def _workload(M):
 @pytest.mark.parametrize("kw", [
     dict(num_pages=64), dict(num_pages=64, max_decodes=5, q_tile=16),
     dict(num_pages=96, max_prefills=2, max_chunk=64, max_decodes=8,
-         max_blocks_per_seq=16, token_buckets=(8, 40), np_buckets=(4,))])
+         max_blocks_per_seq=16, token_buckets=(8, 40), np_buckets=(4,)),
+    dict(num_pages=96, max_prefills=2, max_chunk=64, max_decodes=8,
+         max_blocks_per_seq=16, attn_mode="split")])
 def test_bucket_lattice_and_pack_layout_match_jax(kw):
     tcfg, jcfg = P.EngineConfig(**kw), J.EngineConfig(**kw)
     assert derive_bucket_lattice(tcfg) == J.engine.derive_bucket_lattice(
         jcfg)
     tbs, nbs = derive_bucket_lattice(tcfg)
+    split = tcfg.attn_mode == "split"
+    if split:
+        assert (tbs, nbs) == ((2 * 64 + 8,), (16,))
     for t_b in tbs:
         for np_b in nbs:
-            got, _ = pack_layout_for(tcfg, t_b, np_b, 64)
-            want, _ = j_pack_layout_for(jcfg, 1, t_b, np_b, 64)
+            got, _ = pack_layout_for(tcfg, t_b, np_b, 0 if split else 64)
+            want, _ = j_pack_layout_for(jcfg, 1, t_b, np_b,
+                                        0 if split else 64)
+            if split:       # the reference's split layout as it is
+                assert got == want
+                continue
             sizes = {name: size for name, _, size in got}
             tq = min(tcfg.q_tile, t_b)
             assert sizes.pop("tile_first") == -(-t_b // tq) + 1
@@ -76,11 +98,7 @@ def test_fixed_step_plan_through_both_engines(small):
     run that one plan through both engines: same assembly and work-list,
     same greedy ids, logits and written pools within float32 tolerance."""
     cfg, jp, tp = small
-    tsrv = _server(P, cfg, tp, device="cpu")
-    tsrv.run(_workload(P), max_steps=72)
-    plan = tsrv.sched.schedule(tsrv.now)
-    assert plan.prefills and plan.decodes
-    assert any(np.any(np.diff(c.positions) > 1) for c in plan.prefills)
+    tsrv, plan = _mixed_plan(cfg, tp, "fused")
     teng = tsrv.engine
     jeng = J.Engine(cfg, J.EngineConfig(
         num_pages=NB, page_size=16, max_prefills=2, max_chunk=64,
@@ -126,6 +144,81 @@ def test_fixed_step_plan_through_both_engines(small):
                                    rtol=0, atol=2e-4)
 
 
+def _jax_engine_with_pools(cfg, jp, teng, attn_mode):
+    jeng = J.Engine(cfg, J.EngineConfig(
+        num_pages=NB, page_size=16, max_prefills=2, max_chunk=64,
+        max_decodes=8, attn_mode=attn_mode), jp)
+    jeng.k_pools = jax.numpy.asarray(teng.k_pools[:, :NB].numpy())
+    jeng.v_pools = jax.numpy.asarray(teng.v_pools[:, :NB].numpy())
+    return jeng
+
+
+def test_fixed_split_step_plan_through_both_engines(small):
+    """The split layout: a plan mixing a multi-segment prefill chunk with
+    decode rows (and padding decode rows: ctx 1, slot 0) through the
+    port's and the reference's split engines on the same pools: the same
+    packed buffer, greedy ids, logits and written pools."""
+    cfg, jp, tp = small
+    tsrv, plan = _mixed_plan(cfg, tp, "split")
+    teng = tsrv.engine
+    assert len(plan.decodes) < teng.ecfg.max_decodes
+    jeng = _jax_engine_with_pools(cfg, jp, teng, "split")
+    copies = tsrv.bm.drain_pending_copies()
+    jeng.queue_copies(copies)
+    teng.queue_copies(copies)
+
+    assert teng.buckets_for(plan) == jeng.buckets_for(plan) == (136, 64)
+    inp, bucket = teng.build_inputs(plan)
+    jinp, jbucket = jeng.build_inputs(plan)
+    assert bucket == jbucket == (136, 64, 0)
+    np.testing.assert_array_equal(inp["pack"].numpy(),
+                                  np.asarray(jinp["pack"]))
+    got = teng._unpack(inp, *bucket)
+    assert np.all(got["ctx_dec"].numpy()[len(plan.decodes):] == 1)
+
+    jids, jlogits, jk, jv = jeng._step(jeng.params, jeng.k_pools,
+                                       jeng.v_pools, jinp, *bucket, 1)
+    with torch.no_grad():
+        ids, logits = teng._step_impl(tp, inp, *bucket)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                               rtol=0, atol=1e-5)
+    # the same rope rounding as in the fused case above
+    for tpool, jpool in ((teng.k_pools, jk), (teng.v_pools, jv)):
+        np.testing.assert_allclose(tpool[:, :NB].numpy(), np.asarray(jpool),
+                                   rtol=0, atol=2e-4)
+
+
+def test_port_fused_and_split_engines_agree_on_one_plan(small):
+    """Inside the port, the fused and the split layouts run one mixed plan
+    on the same pools: equal greedy ids, logits and written pools within
+    float32 tolerance (the attention paths sum in different orders, so
+    bit identity is not promised)."""
+    cfg, _, tp = small
+    fsrv, plan = _mixed_plan(cfg, tp, "fused")
+    copies = fsrv.bm.drain_pending_copies()
+    split = P.Engine(cfg, P.EngineConfig(
+        num_pages=NB, page_size=16, max_prefills=2, max_chunk=64,
+        max_decodes=8, attn_mode="split"), tp, device="cpu")
+    split.k_pools.copy_(fsrv.engine.k_pools)
+    split.v_pools.copy_(fsrv.engine.v_pools)
+    outs = []
+    for eng in (fsrv.engine, split):
+        eng.queue_copies(copies)
+        h = eng.execute(plan)
+        outs.append((h.token_ids_np(), h.prefill_logits_np()))
+    (fid, flog), (sid, slog) = outs
+    R, nd = split.ecfg.max_prefills, len(plan.decodes)
+    np.testing.assert_array_equal(fid[:R + nd], sid[:R + nd])
+    n_pre = len(plan.prefills)
+    np.testing.assert_allclose(flog[:n_pre], slog[:n_pre], rtol=0, atol=1e-5)
+    assert split.attn_dispatches == 2 * fsrv.engine.cfg.n_layers
+    for a, b in ((fsrv.engine.k_pools, split.k_pools),
+                 (fsrv.engine.v_pools, split.v_pools)):
+        np.testing.assert_allclose(a[:, :NB].numpy(), b[:, :NB].numpy(),
+                                   rtol=0, atol=1e-5)
+
+
 def test_instep_and_eager_page_ops_leave_identical_pools():
     """Inside the port, COW copies and swap-ins folded into the step land
     the same pool bytes as the eager paths run before it (bf16 pools:
@@ -164,8 +257,7 @@ def test_instep_and_eager_page_ops_leave_identical_pools():
 
 def test_later_slices_raise_not_implemented(small):
     cfg, _, tp = small
-    for kw in (dict(attn_mode="split"), dict(swap_payload="q8"),
-               dict(snap="int8", snap_scale=0.1)):
+    for kw in (dict(swap_payload="q8"), dict(snap="int8", snap_scale=0.1)):
         with pytest.raises(NotImplementedError):
             P.Engine(cfg, P.EngineConfig(num_pages=8, **kw), tp,
                      device="cpu")

@@ -1,7 +1,8 @@
-"""Port vs reference for the kernel modules: the plain PyTorch fused MSA
-against the JAX oracle and the JAX Pallas kernel (interpret mode), the
-host work-list item for item, the per-tile item ranges the CUDA kernel
-walks, the page ops, the serving layers, and the weight bridge.
+"""Port vs reference for the kernel modules: the plain PyTorch fused,
+prefill and decode MSA against the JAX oracles and the JAX Pallas kernels
+(interpret mode), the MSA contract (Eq. 2) on the port's plain prefill,
+the host work-list item for item, the per-tile item ranges the fused CUDA
+kernel walks, the page ops, the serving layers, and the weight bridge.
 
 Tolerances are those of ``tests/test_kernels.py``: 1e-5 at float32, 2e-2
 at bfloat16 (the two frameworks round bf16 at different places).  Inputs
@@ -20,14 +21,17 @@ from repro.kernels.msa import (WL_FIELDS as JWL_FIELDS,
                                apply_page_copies as j_apply_page_copies,
                                apply_swap_ins as j_apply_swap_ins,
                                build_worklist as j_build_worklist,
+                               msa_decode as j_msa_decode,
                                msa_fused as j_msa_fused,
+                               msa_prefill as j_msa_prefill,
                                write_kv_pages as j_write_kv_pages)
 from repro.models import layers as jlayers
 from repro_torch.kernels.msa import (WL_FIELDS, apply_page_copies,
                                      apply_swap_ins, build_worklist,
-                                     msa_fused, msa_fused_cuda,
-                                     pad_worklist, tile_ranges,
-                                     write_kv_pages)
+                                     msa_decode, msa_decode_cuda, msa_fused,
+                                     msa_fused_cuda, msa_prefill,
+                                     msa_prefill_cuda, pad_worklist,
+                                     tile_ranges, write_kv_pages)
 from repro_torch.kernels.msa.ref import NEG_INF
 from repro_torch.models import layers as tlayers
 
@@ -162,6 +166,214 @@ def test_plain_msa_fused_zeroes_slack_rows():
 
 
 # ---------------------------------------------------------------------------
+# split layout: padded prefill and paged decode
+# ---------------------------------------------------------------------------
+
+def _pools(rng, P, page, KH, D):
+    return (rng.standard_normal((P, page, KH, D)).astype(np.float32),
+            rng.standard_normal((P, page, KH, D)).astype(np.float32))
+
+
+def _both(dtype, *arrays):
+    """The same numpy arrays as JAX arrays and as torch tensors (float
+    arrays cast to ``dtype``, index arrays kept int32)."""
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    js, ts = [], []
+    for a in arrays:
+        a = np.asarray(a)
+        if a.dtype == np.float32:
+            js.append(jnp.asarray(a, jd))
+            ts.append(torch.from_numpy(a).to(td))
+        else:
+            js.append(jnp.asarray(a))
+            ts.append(torch.from_numpy(a))
+    return js, ts
+
+
+def _impls(dtype, representative):
+    """The JAX sides a case is held to: the xla oracle always, and the
+    Pallas kernel (interpret mode, seconds a case) at float32, where the
+    comparison sees the algorithm, on a representative case only."""
+    if dtype == "float32" and representative:
+        return ("xla", "pallas_interpret")
+    return ("xla",)
+
+
+# the JAX side compiled once per shape (its eager oracle compiles op by op)
+_j_prefill = jax.jit(j_msa_prefill, static_argnames=(
+    "window", "softcap", "q_tile", "impl"))
+_j_decode = jax.jit(j_msa_decode, static_argnames=(
+    "window", "softcap", "impl"))
+
+
+def _prefill_case(rng, *, h, kh, d, page, R=2, QP=16, NP=5, P=32):
+    """The tests/test_kernels.py:37 case: a two-segment chunk reaching the
+    end of a full context and a ragged contiguous one."""
+    q = rng.standard_normal((R, QP, h, d)).astype(np.float32)
+    kp, vp = _pools(rng, P, page, kh, d)
+    bt = rng.randint(0, P, (R, NP)).astype(np.int32)
+    ctx = np.asarray([NP * page, 2 * page + 3], np.int32)
+    q_pos = np.stack([
+        np.concatenate([np.arange(3, 3 + QP // 2),
+                        np.arange(NP * page - QP // 2, NP * page)]),
+        np.arange(QP)]).astype(np.int32)
+    q_lens = np.asarray([QP, QP - 3], np.int32)
+    return q, kp, vp, bt, ctx, q_pos, q_lens
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,kh,d", [(4, 2, 32), (4, 4, 16), (8, 2, 64)])
+@pytest.mark.parametrize("page,q_tile", [(8, 8), (16, 4)])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (12, 0.0), (0, 30.0)])
+def test_plain_msa_prefill_matches_jax(dtype, h, kh, d, page, q_tile, window,
+                                       softcap):
+    """The tests/test_kernels.py:34 sweep: GQA ratios, pages and q tiles,
+    window and softcap, a two-segment chunk and a ragged one; every row,
+    padding included.  The Pallas kernel sees the GQA-4 cases with a
+    window or a softcap (``_impls``)."""
+    rng = np.random.RandomState(h * 100 + d + page)
+    args = _prefill_case(rng, h=h, kh=kh, d=d, page=page)
+    (jq, jk, jv, *jidx), (tq, tk, tv, *tidx) = _both(dtype, *args)
+    kw = dict(window=window, softcap=softcap)
+    got = _f32(msa_prefill(tq, tk, tv, *tidx, **kw))
+    representative = (h, kh, page) == (8, 2, 16) and (window or softcap)
+    for impl in _impls(dtype, representative):
+        want = _f32(_j_prefill(jq, jk, jv, *jidx, q_tile=q_tile, impl=impl,
+                               **kw))
+        assert np.max(np.abs(got - want)) < TOL[dtype], impl
+    assert np.all(got[1, args[6][1]:] == 0.0)     # padding rows
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,kh,d", [(4, 2, 32), (8, 8, 16), (8, 1, 64)])
+@pytest.mark.parametrize("window", [0, 10])
+def test_plain_msa_decode_matches_jax(dtype, h, kh, d, window):
+    """The tests/test_kernels.py:63 sweep, with a ctx = 1 row (the serving
+    engine's padding decode rows); the Pallas kernel sees the GQA-8
+    cases."""
+    B, NP, P, page = 3, 6, 24, 8
+    rng = np.random.RandomState(h * 10 + d + window)
+    q = rng.standard_normal((B, h, d)).astype(np.float32)
+    kp, vp = _pools(rng, P, page, kh, d)
+    bt = rng.randint(0, P, (B, NP)).astype(np.int32)
+    ctx = np.asarray([NP * page, 17, 1], np.int32)
+    (jq, jk, jv, jbt, jctx), ts = _both(dtype, q, kp, vp, bt, ctx)
+    got = _f32(msa_decode(*ts, window=window))
+    for impl in _impls(dtype, kh == 1):
+        want = _f32(_j_decode(jq, jk, jv, jbt, jctx, window=window,
+                              impl=impl))
+        assert np.max(np.abs(got - want)) < TOL[dtype], impl
+
+
+@pytest.mark.parametrize("window", [0, 12])
+def test_plain_msa_prefill_masks_invalid_q_rows(window):
+    """The tests/test_fused.py:196 regression: padded rows (past q_lens,
+    q_pos 0) neither attend nor move the tile's page range, and come out
+    as exact zeros, against the Pallas kernel on every row."""
+    rng = np.random.RandomState(21)
+    q, kp, vp, bt, ctx, _, _ = _prefill_case(rng, h=4, kh=2, d=32, page=8)
+    QP = q.shape[1]
+    q_pos = np.stack([
+        np.concatenate([np.arange(30, 30 + QP // 2),
+                        np.arange(5 * 8 - QP // 2, 5 * 8)]),
+        np.arange(QP)]).astype(np.int32)
+    q_lens = np.asarray([QP - 6, 3], np.int32)
+    q_pos = np.where(np.arange(QP)[None, :] < q_lens[:, None], q_pos, 0)
+    js, ts = _both("float32", q, kp, vp, bt, ctx, q_pos, q_lens)
+    got = _f32(msa_prefill(*ts, window=window))
+    want = _f32(j_msa_prefill(*js, window=window, q_tile=8,
+                              impl="pallas_interpret"))
+    assert np.max(np.abs(got - want)) < TOL["float32"]
+    assert np.all(got[0, QP - 6:] == 0.0) and np.all(got[1, 3:] == 0.0)
+
+
+@pytest.mark.parametrize("qp,q_tile", [(20, 16), (5, 128), (13, 8)])
+def test_plain_msa_prefill_takes_ragged_qp(qp, q_tile):
+    """The tests/test_fused.py:229 case: a QP that is no multiple of the
+    tile is legal (the Pallas wrapper rounds it up; the port needs no
+    round-up) and gives the Pallas kernel's result."""
+    R, NP, P, page, H, KH, D = 2, 4, 16, 8, 4, 2, 16
+    rng = np.random.RandomState(qp)
+    q = rng.standard_normal((R, qp, H, D)).astype(np.float32)
+    kp, vp = _pools(rng, P, page, KH, D)
+    bt = rng.randint(0, P, (R, NP)).astype(np.int32)
+    ctx = np.asarray([NP * page, 2 * page + 1], np.int32)
+    q_pos = np.stack([np.arange(qp), np.arange(qp)]).astype(np.int32)
+    q_lens = np.asarray([qp, max(1, qp - 2)], np.int32)
+    js, ts = _both("float32", q, kp, vp, bt, ctx, q_pos, q_lens)
+    got = msa_prefill(*ts)
+    want = _f32(j_msa_prefill(*js, q_tile=q_tile, impl="pallas_interpret"))
+    assert tuple(got.shape) == want.shape
+    assert np.max(np.abs(_f32(got) - want)) < TOL["float32"]
+
+
+def _paged(rng, k_full, v_full, page, n_pool):
+    """Scatter contiguous (S, KH, D) K/V into shuffled pool pages; the
+    block table of the one sequence."""
+    S, KH, D = k_full.shape
+    NP = S // page
+    perm = rng.permutation(n_pool)[:NP]
+    kp = np.zeros((n_pool, page, KH, D), np.float32)
+    vp = np.zeros((n_pool, page, KH, D), np.float32)
+    for j in range(NP):
+        kp[perm[j]] = k_full[j * page:(j + 1) * page]
+        vp[perm[j]] = v_full[j * page:(j + 1) * page]
+    return kp, vp, perm[None, :].astype(np.int32)
+
+
+def test_plain_msa_equals_contiguous_attention():
+    """Eq. 2 (tests/test_kernels.py:86): attention over a paged context in
+    shuffled pool pages equals causal attention over the contiguous
+    sequence (the JAX package's dense flash attention)."""
+    S, H, KH, D, page = 48, 4, 2, 32, 8
+    rng = np.random.RandomState(0)
+    k_full = rng.standard_normal((S, KH, D)).astype(np.float32)
+    v_full = rng.standard_normal((S, KH, D)).astype(np.float32)
+    q = rng.standard_normal((1, S, H, D)).astype(np.float32)
+    pos = np.arange(S, dtype=np.int32)[None]
+    want = jlayers.flash_attention(
+        jnp.asarray(q), jnp.asarray(k_full[None]), jnp.asarray(v_full[None]),
+        jnp.asarray(pos), jnp.asarray(pos), chunk_size=16)
+    kp, vp, bt = _paged(rng, k_full, v_full, page, 16)
+    got = msa_prefill(*map(torch.from_numpy, (
+        q, kp, vp, bt, np.asarray([S], np.int32), pos,
+        np.asarray([S], np.int32))))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("n_seg,seed", [(1, 0), (2, 1), (3, 2), (4, 3)])
+def test_plain_msa_segment_merge_property(n_seg, seed):
+    """Eq. 2 generalised (tests/test_kernels.py:120): q rows whose
+    positions form ``n_seg`` separate runs (the gaps a recompute of an
+    evicted history leaves) attend exactly as the same positions do over
+    the contiguous sequence."""
+    rng = np.random.RandomState(seed)
+    page, KH, H, D, S = 4, 2, 4, 16, 40
+    k_full = rng.standard_normal((S, KH, D)).astype(np.float32)
+    v_full = rng.standard_normal((S, KH, D)).astype(np.float32)
+    starts = np.sort(rng.choice(np.arange(0, S, 5), n_seg, replace=False))
+    idx = np.unique(np.concatenate(
+        [np.arange(a, min(S, a + rng.randint(1, 5))) for a in starts]))
+    q_pos = idx.astype(np.int32)[None]
+    q = rng.standard_normal((1, len(idx), H, D)).astype(np.float32)
+    want = jlayers.flash_attention(
+        jnp.asarray(q), jnp.asarray(k_full[None]), jnp.asarray(v_full[None]),
+        jnp.asarray(q_pos), jnp.arange(S, dtype=jnp.int32)[None],
+        chunk_size=8)
+    kp, vp, bt = _paged(rng, k_full, v_full, page, S // page + 4)
+    got = msa_prefill(*map(torch.from_numpy, (
+        q, kp, vp, bt, np.asarray([S], np.int32), q_pos,
+        np.asarray([len(idx)], np.int32))))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
 # host work-list and the per-tile ranges the CUDA kernel walks
 # ---------------------------------------------------------------------------
 
@@ -265,15 +477,24 @@ def test_kernel_tile_walk_matches_plain(seed, window, softcap, q_tile):
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
-    """The CUDA wrapper never computes on the CPU: it raises."""
+    """The CUDA wrappers never compute on the CPU: they raise."""
     q = torch.zeros((4, 2, 16))
     pages = torch.zeros((3, 8, 1, 16))
     i32 = torch.zeros((1,), dtype=torch.int32)
+    bt = torch.zeros((1, 2), dtype=torch.int32)
     with pytest.raises(ValueError):
         msa_fused_cuda(q, pages, pages, i32, i32, i32, i32, (i32,) * 6,
                        i32)
     with pytest.raises(ValueError):
         msa_fused(q.to("meta"), pages, pages, None, None, None, None, None)
+    with pytest.raises(ValueError):
+        msa_prefill_cuda(q[None], pages, pages, bt, i32, i32[None], i32)
+    with pytest.raises(ValueError):
+        msa_decode_cuda(q, pages, pages, bt, i32)
+    with pytest.raises(ValueError):
+        msa_prefill(q[None].to("meta"), pages, pages, bt, i32, i32, i32)
+    with pytest.raises(ValueError):
+        msa_decode(q.to("meta"), pages, pages, bt, i32)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""The slice as a whole: the JAX server and the port's server serve the
+"""The slices as a whole: the JAX server and the port's server serve the
 same workload with the smoke model at float32 on the same weights (the
-port's through the weight bridge).  The control plane is a copy, so the
+port's through the weight bridge), in the fused and in the split
+attention layout.  The control plane is a copy, so the
 runs must agree exactly on greedy tokens, sampled ids, step counts,
 bucket counts and page-op counters; ``first_logits`` agree within 1e-4
 of their scale (float32 through two frameworks' matmul and softmax
@@ -29,14 +30,17 @@ def small_model():
     return cfg, jp, tp
 
 
-def _mk_server(M, cfg, params, *, depth, num_blocks, host_blocks, **kw):
+def _mk_server(M, cfg, params, *, depth, num_blocks, host_blocks,
+               attn_mode, **kw):
     scfg = M.ServerConfig(
         policy="asymcache", num_blocks=num_blocks, block_size=16,
         clock="model", pipeline_depth=depth, host_blocks=host_blocks,
+        attn_mode=attn_mode,
         scheduler=M.SchedulerConfig(token_budget=128, max_chunk=64,
                                     max_prefills=2, max_decodes=8))
     ecfg = M.EngineConfig(num_pages=num_blocks, page_size=16,
-                          max_prefills=2, max_chunk=64, max_decodes=8)
+                          max_prefills=2, max_chunk=64, max_decodes=8,
+                          attn_mode=attn_mode)
     return M.AsymCacheServer(cfg, params, scfg, ecfg=ecfg, **kw)
 
 
@@ -59,20 +63,30 @@ COUNTERS = ("steps", "n_requests", "evictions", "swap_ins", "swap_outs",
             "instep_swaps", "eager_swaps", "swap_bytes_shipped")
 
 
-@pytest.mark.parametrize("kind,depth,num_blocks,host_blocks", [
+CASES = [
     ("multi_turn", 1, 64, 0),          # the _mk_server/_wl settings
     ("shared_prefix", 0, 32, 16),      # evictions, swaps, COW forks
-])
+]
+
+
+# the fused cases keep their ids from before the split layout was ported
+@pytest.mark.parametrize("kind,depth,num_blocks,host_blocks,attn_mode", [
+    pytest.param(*case, mode,
+                 id="-".join(map(str, case if mode == "fused"
+                                 else (mode,) + case)))
+    for mode in ("fused", "split") for case in CASES])
 def test_port_server_matches_reference(small_model, kind, depth, num_blocks,
-                                       host_blocks):
+                                       host_blocks, attn_mode):
     cfg, jp, tp = small_model
-    kw = dict(depth=depth, num_blocks=num_blocks, host_blocks=host_blocks)
+    kw = dict(depth=depth, num_blocks=num_blocks, host_blocks=host_blocks,
+              attn_mode=attn_mode)
     wj, wt = _workload(J, kind), _workload(P, kind)
     rj = _mk_server(J, cfg, jp, **kw).run(wj)
     rt = _mk_server(P, cfg, tp, device="cpu", **kw).run(wt)
     for key in COUNTERS:
         assert rt[key] == rj[key], key
-    assert rt["attn_dispatches_per_step"] == cfg.n_layers
+    assert rt["attn_dispatches_per_step"] == cfg.n_layers * (
+        1 if attn_mode == "fused" else 2)
     if kind == "shared_prefix":
         assert rt["evictions"] and rt["swap_ins"] and rt["instep_copies"]
     for a, b in zip(wt, wj):
