@@ -15,7 +15,8 @@ Phases:
        non-contiguous block tables plus 32 decode rows with contexts up
        to 4k, and small cases with a sliding window, a softcap and
        all-padding tiles; a decode-only step of 32 rows (the fused
-       serving run's commonest bucket) is timed as well;
+       serving run's commonest bucket) is timed as well; every case is
+       launched twice and must give the same bits;
      - prefill: R 4 chunks of QP 128 (one with two gaps, one ragged, one
        empty, one full) with contexts up to 4k, and small cases with a
        window, a softcap and an all-padding step; the main case again at
@@ -23,8 +24,11 @@ Phases:
      - decode: B 64 rows, 32 with contexts up to 4k and 32 padding rows
        (ctx 1), and small window and softcap cases; and the decode
        kernel on the fused decode-only step's 32 rows.
-     Kernel and plain version are timed with CUDA events (median of 20)
-     beside the bound.
+     Kernel and plain version are timed with CUDA events (median of 20),
+     each call queued behind a device sleep so that the events time the
+     device alone, beside the bound; the kernels are timed once more from
+     an idle device (``ms_with_enqueue``: the host's enqueue included, the
+     method of earlier runs).
   3. Serve a multi-turn workload through ``AsymCacheServer.run`` with
      Llama-3.1-8B at full width and depth (bf16, random weights from a
      seeded generator) and a KV pool small enough to force evictions;
@@ -38,7 +42,10 @@ Phases:
      the same steps, evictions, recomputed tokens and multi-segment
      chunks, equal first sampled ids, first logits within tolerance.
   4. Profile a short serving run (``torch.profiler``): device time by
-     kernel, the attention kernel's share, the device's idle share.
+     kernel, the share of the kernels ``msa_fused`` launches (the kernel
+     and its merge), their device ms a call, the device's idle share.
+     Phases 3 and 3b also print the mean host seconds a step spends
+     assembling its inputs (``StepHandle.assembly_time``).
 
 Prints the card line again, the kernel table (all three kernels) as a
 JSON line, and, last, ``{"ok": true, "device": {...}}``.  Any failure
@@ -71,6 +78,9 @@ KERNEL_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # dense attention, GEMMs of other shapes, recomputed KV) through 32
 # residual layers.
 LOGIT_REL_TOL = 5e-2
+# ~1 ms of device sleep (at ~2 GHz) queued ahead of a timed call: longer
+# than the host takes to enqueue one kernel call
+SLEEP_CYCLES = 2_000_000
 
 
 def _card_line() -> str:
@@ -82,7 +92,13 @@ def _card_line() -> str:
         else f"nvidia-smi failed: {out.stderr.strip()}"
 
 
-def _median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def _median_ms(fn, iters: int = 20, warmup: int = 3,
+               device_only: bool = True) -> float:
+    """Median of ``iters`` CUDA-event timings of ``fn()``.  With
+    ``device_only`` each timed call is queued behind a ~1 ms device sleep,
+    so the events see the device's work alone; without it the timing
+    starts on an idle device and includes the host's time to enqueue the
+    call (the method of earlier runs)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -91,6 +107,8 @@ def _median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -109,8 +127,8 @@ def _step_case(rng, *, H, KH, D, page, prefills, decode_ctx, t_bucket,
     ``(ctx, [(lo, hi), ...])`` position runs) packed first, then decode
     rows, then bucket slack.  Every sequence owns disjoint, shuffled
     (non-contiguous) pool pages."""
-    from repro_torch.kernels.msa import build_worklist, pad_worklist, \
-        tile_ranges
+    from repro_torch.kernels.msa import build_units, build_worklist, \
+        pad_worklist
     ctxs = [c for c, _ in prefills] + list(decode_ctx)
     runs = [np.concatenate([np.arange(lo, hi) for lo, hi in segs])
             for _, segs in prefills]
@@ -140,8 +158,9 @@ def _step_case(rng, *, H, KH, D, page, prefills, decode_ctx, t_bucket,
     n_tiles = -(-t_bucket // tq)
     wl, count = build_worklist(q_start, q_len, ctx, bt, q_pos, page=page,
                                q_tile=tq, n_tiles=n_tiles, window=0)
-    tile_first = tile_ranges(wl, n_tiles)
     wl = pad_worklist(wl, 1 << (count - 1).bit_length(), sentinel_seq=n)
+    units = build_units(wl, q_start, q_len, n_rows=t_bucket, q_tile=tq,
+                        n_tiles=n_tiles)
     # bytes the function must move: every pool page a real item names
     # (K and V, all kv heads, read once), q read once, output written once
     real_items = wl["wl_seq"][:count] < n
@@ -156,7 +175,7 @@ def _step_case(rng, *, H, KH, D, page, prefills, decode_ctx, t_bucket,
         k=rng.standard_normal((P, page, KH, D)).astype(np.float32),
         v=rng.standard_normal((P, page, KH, D)).astype(np.float32),
         bt=bt, ctx=ctx, q_pos=q_pos, seq_ids=seq_ids, valid=valid,
-        q_start=q_start, q_len=q_len, wl=wl, tile_first=tile_first,
+        wl=wl, units=units,
         real=real, window=window, softcap=softcap, q_tile=tq,
         pages_read=pages_read, flops=4.0 * float(keys.sum()) * H * D)
 
@@ -173,40 +192,43 @@ def _bound(nbytes, flops, dtype_name):
 
 def _run_case(case, dtype_name, *, time_it=False):
     import torch
-    from repro_torch.kernels.msa import WL_FIELDS, msa_fused
+    from repro_torch.kernels.msa import UNIT_FIELDS, WL_FIELDS, msa_fused
     from repro_torch.kernels.msa.ref import msa_fused_ref
     dt = getattr(torch, dtype_name)
     dev = torch.device("cuda")
     f = {k: torch.from_numpy(np.asarray(case[k])).to(dev)
-         for k in ("bt", "ctx", "q_pos", "seq_ids", "valid", "q_start",
-                   "q_len", "tile_first")}
+         for k in ("bt", "ctx", "q_pos", "seq_ids", "valid")}
     q = torch.from_numpy(case["q"]).to(dev, dt)
     kp = torch.from_numpy(case["k"]).to(dev, dt)
     vp = torch.from_numpy(case["v"]).to(dev, dt)
     wl = tuple(torch.from_numpy(case["wl"][name]).to(dev)
                for name in WL_FIELDS)
+    units = tuple(torch.from_numpy(case["units"][name]).to(dev)
+                  for name in UNIT_FIELDS)
     kw = dict(window=case["window"], softcap=case["softcap"])
 
     def kernel():
         return msa_fused(q, kp, vp, f["bt"], f["ctx"], f["q_pos"],
-                         f["seq_ids"], f["valid"], q_start=f["q_start"],
-                         q_len=f["q_len"], worklist=wl,
-                         tile_first=f["tile_first"], q_tile=case["q_tile"],
-                         **kw)
+                         f["seq_ids"], f["valid"], worklist=wl, units=units,
+                         q_tile=case["q_tile"], **kw)
 
     def plain():
         return msa_fused_ref(q, kp, vp, f["bt"], f["ctx"], f["q_pos"],
                              f["seq_ids"], f["valid"], **kw)
 
-    got = kernel()
+    got, again = kernel(), kernel()
     torch.cuda.synchronize()
     want = plain()
     err = float((got.float() - want.float()).abs().max())
     slack_zero = bool((got[case["real"]:] == 0).all())
+    n_units, n_merges = (int(x) for x in case["units"]["unit_counts"])
     out = {"max_abs_err": err, "slack_zero": slack_zero,
-           "finite": bool(torch.isfinite(got).all())}
+           "finite": bool(torch.isfinite(got).all()),
+           "same_bits_twice": bool(torch.equal(got, again)),
+           "units": n_units, "cut_runs": n_merges}
     if time_it:
         out["ms"] = _median_ms(kernel)
+        out["ms_with_enqueue"] = _median_ms(kernel, device_only=False)
         out["plain_ms"] = _median_ms(plain)
         itemsize = q.element_size()
         H, D = q.shape[1], q.shape[2]
@@ -261,7 +283,7 @@ def kernel_phase():
                 **{k: v for k, v in res.items()}}
         print("kernel_check " + json.dumps(line), flush=True)
         if not (res["finite"] and res["slack_zero"]
-                and res["max_abs_err"] <= tol):
+                and res["same_bits_twice"] and res["max_abs_err"] <= tol):
             raise AssertionError(f"msa_fused kernel disagrees: {line}")
     return results, decode
 
@@ -379,6 +401,7 @@ def _run_split_case(kind, case, dtype_name, *, time_it=False):
         out["padding_zero"] = bool((got[pad] == 0).all())
     if time_it:
         out["ms"] = _median_ms(kernel)
+        out["ms_with_enqueue"] = _median_ms(kernel, device_only=False)
         out["plain_ms"] = _median_ms(plain)
         q, kp = args[0], args[1]
         _, page, KH, D = kp.shape
@@ -474,7 +497,9 @@ def split_kernel_phase(fused_results, fused_decode):
         dec = _run_split_case("decode", same_step, dtype_name, time_it=True)
         fused = fused_results[("decode", dtype_name)]
         line = {"step": "decode-only, 32 rows", "dtype": dtype_name,
-                "msa_fused_ms": fused["ms"], "msa_decode_ms": dec["ms"],
+                "msa_fused_ms": fused["ms"],
+                "msa_fused_bound_ms": fused["bound_ms"],
+                "msa_decode_ms": dec["ms"],
                 "msa_decode_bound_ms": dec["bound_ms"],
                 "msa_decode_max_abs_err": dec["max_abs_err"]}
         print("fused_vs_decode " + json.dumps(line), flush=True)
@@ -502,14 +527,17 @@ def _measured_run(srv, wl):
     """Drive one serving run with every kernel's launch count set to 0
     just before and read just after; count the prefill chunks whose
     compute positions have gaps (the multi-segment recompute of a history
-    that was partly evicted)."""
+    that was partly evicted), and keep each step's host assembly seconds
+    (``StepHandle.assembly_time``) in ``res["assembly_s"]``."""
     import torch
-    dispatch, seg_chunks = srv.engine.dispatch, []
+    dispatch, seg_chunks, assembly = srv.engine.dispatch, [], []
 
     def counting_dispatch(plan):
         seg_chunks.extend(c for c in plan.prefills
                           if np.any(np.diff(c.positions) > 1))
-        return dispatch(plan)
+        handle = dispatch(plan)
+        assembly.append(handle.assembly_time)
+        return handle
 
     srv.engine.dispatch = counting_dispatch
     torch.cuda.synchronize()
@@ -519,6 +547,7 @@ def _measured_run(srv, wl):
     res = srv.run(wl)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in _kernel_counts().items()}
+    res["assembly_s"] = assembly
     return res, len(seg_chunks), launches
 
 
@@ -537,6 +566,7 @@ def _serve_line(wl, res, seg_chunks, launches):
         "tpot_mean_s": res["tpot_mean"], "tpot_p90_s": res["tpot_p90"],
         "wall_s": res["wall_time"],
         "steps_per_s": res["steps"] / res["wall_time"],
+        "assembly_mean_s": statistics.mean(res["assembly_s"]),
         "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
@@ -700,20 +730,25 @@ def split_serve_phase(fused):
 
 def profile_phase(make_server, make_workload):
     """torch.profiler (CPU and CUDA activity) over a short serving run of
-    two requests: device time by kernel, the attention kernel's share,
-    and the device's idle share of the run's wall time (the profiler's
-    own host cost included, so the idle share is an upper bound)."""
+    two requests: device time by kernel, the attention's share (every
+    kernel one ``msa_fused`` call launches: the kernel and its merge), its
+    mean device time a call, and the device's idle share of the run's wall
+    time (the profiler's own host cost included, so the idle share is an
+    upper bound)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.msa import msa_fused_cuda
     srv = make_server()
     wl = make_workload(seed=2)[:2]
     torch.cuda.synchronize()
+    calls0 = msa_fused_cuda.launches
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         res = srv.run(wl)
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
+    calls = msa_fused_cuda.launches - calls0
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
@@ -723,12 +758,14 @@ def profile_phase(make_server, make_workload):
               "(not measured)", flush=True)
         return
     msa_us = sum(e.self_device_time_total for e in kernels
-                 if "msa_fused_kernel" in e.key)
+                 if "msa_fused" in e.key)
     print("profile: " + json.dumps({
         "steps": res["steps"], "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / wall_us,
         "msa_fused_share_of_busy": msa_us / busy_us,
+        "msa_fused_calls": calls,
+        "msa_fused_device_ms_per_call": msa_us / 1e3 / max(calls, 1),
         "device_ms_per_step": busy_us / 1e3 / res["steps"]}), flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print("profile_kernel " + json.dumps({

@@ -1,6 +1,8 @@
 from repro_torch.kernels.msa.msa_decode import msa_decode_cuda
 from repro_torch.kernels.msa.msa_fused import (
+    UNIT_FIELDS,
     WL_FIELDS,
+    build_units,
     build_worklist,
     msa_fused_cuda,
     pad_worklist,
@@ -16,7 +18,8 @@ from repro_torch.kernels.msa.ops import (
     write_kv_pages,
 )
 
-__all__ = ["apply_page_copies", "apply_swap_ins", "build_worklist",
+__all__ = ["apply_page_copies", "apply_swap_ins", "build_units",
+           "build_worklist",
            "msa_decode", "msa_decode_cuda", "msa_fused", "msa_fused_cuda",
            "msa_prefill", "msa_prefill_cuda", "pad_worklist", "tile_ranges",
-           "write_kv_pages", "WL_FIELDS"]
+           "write_kv_pages", "UNIT_FIELDS", "WL_FIELDS"]

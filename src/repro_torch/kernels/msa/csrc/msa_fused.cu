@@ -7,241 +7,726 @@
 // K/V context of the row's own sequence, with the mask
 //   row inside the item's sequence run, kv_pos <= q_pos, kv_pos < ctx,
 //   q_pos - kv_pos < window (window > 0),
-// GQA head h reading kv head h / (H / KH), f32 online softmax across the
-// items of a q tile, output acc / max(l, 1e-30) in the input type, and
-// exact zeros on rows no item covers (padding, all-padding tiles).
+// GQA head h reading kv head h / (H / KH), f32 online softmax, output
+// acc / max(l, 1e-30) in the input type, and exact zeros on rows no item
+// covers (padding, all-padding tiles).
 //
 // Work decomposition.  The Pallas grid (H, W) ran the work-list axis W in
-// order and carried acc/m/l in VMEM from one grid step to the next.  CUDA
-// blocks run in no order, so here one block owns one (q tile, q head): it
-// walks that tile's contiguous item range [tile_first[t], tile_first[t+1])
-// and keeps the tile's f32 accumulators in shared memory for the whole
-// walk, writing the tile once at the end.  Each block reads its own
-// indices (there is no scalar prefetch).  Inside the block, row r of the
-// tile belongs to warp (r - row0) % kWarps for the whole walk, and every
-// warp walks the item range on its own: 32 items' indices at a time, one
-// per lane, a ballot picks the items that touch the warp's rows, and the
-// warp attends those rows to the item's page.  Items of different
-// sequences touch different rows, so a decode-heavy tile (one row per
-// sequence, ~100 pages each) runs kWarps sequences at once with no block
-// barrier between items; a prefill tile spreads its rows over the warps.
-// Within a warp, lane l holds dims {2l, 2l+1} (+64 i) of the q row and the
-// accumulator: each key's K and V rows are read as whole coalesced rows,
-// and a score is one warp reduction.
+// order and carried acc/m/l in VMEM from one grid step to the next.  Here
+// the host cuts the work-list into work units (msa_fused.build_units): a
+// unit is a (sequence, q tile) run of the work-list, or a piece of at most
+// a fixed number of its pages when the run is long, or a span of rows no
+// item covers.  A work item of the kernel is one (unit, kv head, 64-row
+// slice): its M rows are the unit's rows times the G = H / KH q heads of
+// the group, stacked (M-row m is row m / G, head m % G), so every K/V page
+// is read once per GQA group and feeds a 64 x 32 x D product.  A run that
+// was not cut writes the output directly; the units of a cut run write
+// f32 partials (o, m, l) to scratch, and a second kernel of the same call
+// (msa_fused_merge_kernel) merges each run's partials in unit order, so
+// the result is the same bits on every launch.  Blocks are persistent:
+// the grid fills the card once and each block walks the work items
+// blockIdx.x, blockIdx.x + gridDim.x, ... below the unit count, which the
+// kernel reads from device memory (the host's unit fields are padded to a
+// bucket, so the launch shape does not depend on the step).
+//
+// Inside a block: four warps.  A work item with more than 16 live M rows
+// gives warp w M rows 16w .. 16w + 15 against all of a stage's keys; one
+// with at most 16 (a decode unit: its G rows) gives every warp those rows
+// against its own 8 of each stage's 32 keys, and the four warps' (o, m, l)
+// are merged in warp order in shared memory at the end.  The
+// q tile is copied into shared memory once; the unit's keys stream
+// through a ring of 2-3 stages of 32 key slots (whole pages, or 32-key
+// pieces of a longer page), K and V rows copied with cp.async (16 bytes a
+// thread where rows are 16-byte aligned, else 4) and zero-filled past D
+// and past the unit's last key, so the next stages load while the current
+// one is in the products.  bf16: S = Q K^T and O += P V on the tensor
+// cores (mma.sync m16n8k16, bf16 in, f32 accumulate, operands through
+// ldmatrix); P is carried as a hi + lo pair of bf16 values through two
+// products, so rounding P costs nothing measurable against the output's
+// own bf16 rounding.  f32: the same tiles and the same register layout,
+// with full-float32 FMAs on the CUDA cores (never TF32).  A masked key's
+// p is set to 0 explicitly (masked scores hold the finite NEG_INF), so a
+// row whose first stages are all masked keeps m = NEG_INF and l = 0.
 //
 // What bounds it on the H100: bytes.  A step reads every needed K/V page
-// of every sequence (16 x 128 bf16 = 4 KB per page per kv head at
-// Llama-3.1-8B) and does ~2 flops per byte read, far below the ~295
-// flop/byte at which the tensor cores would be the limit.  What this
-// design does about it: only pages the work-list names (context, causal
-// horizon) are read, straight from their pool slots.  A warp's work is a
-// stream of (item, chunk of the page's keys); it loads a chunk's K and V
-// rows into registers with every load in flight at once, uses the chunk
-// for all of its rows, and issues the next chunk's loads before the
-// current chunk's math, so a warp keeps a chunk in flight while it
-// computes.  The other heads of a GQA group and the other warps of a
-// prefill tile find the page in L2.  What it does not do yet: spread one
-// tile's items over several blocks (a decode-only step has n_tiles x H
-// blocks), keep more than one chunk in flight (cp.async / TMA into shared
-// memory), or use the tensor cores (wgmma) for the prefill rows.  q.k in
-// float32 is computed with plain FMAs in full float32 (never TF32).
+// (16 x 128 bf16 = 4 KB of K and 4 KB of V per page per kv head at
+// Llama-3.1-8B) and does ~45 flops per byte on a mixed step, far below the
+// ~295 flop/byte at which the tensor cores would be the limit.  What this
+// design does about it: only pages the work-list names are read, once per
+// GQA group; long contexts are spread over several blocks, so the card is
+// full on a decode-only step; copies run ahead of the math.  What it does
+// not do yet: TMA, wgmma, or warp specialisation; a decode unit still
+// fills only G of the 16 rows of its products.
 
 #include "msa_common.cuh"
 
+#include <limits.h>
+
 namespace {
 
-constexpr int kWarps = 16;
-constexpr int kThreads = kWarps * 32;
+constexpr int kWarpsF = 4;
+constexpr int kThreadsF = kWarpsF * 32;
+constexpr int kMRows = 16 * kWarpsF;  // M rows of one work item
+constexpr int kKeys = 32;             // key slots of one stage
 
-// The warp's rows first, first + kWarps, ... < hi of the tile against
-// one chunk of keys of an item's page (kv positions kvbase + c0 + jj).
-template <typename T, int kP, int kC>
-__device__ __forceinline__ void attend_chunk(
-    const typename PairOf<T>::type (&kk)[kC][kP],
-    const typename PairOf<T>::type (&vv)[kC][kP], const T* __restrict__ q,
-    int n_heads, int h, float* __restrict__ acc, float* __restrict__ m_s,
-    float* __restrict__ l_s, const int* __restrict__ q_pos, int row0,
-    int first, int hi, int D, int page, int c0, int kvbase, int ctx,
-    int window, float softcap, float scale, int lane) {
-  for (int r = first; r < hi; r += kWarps) {
-    const int rr = r - row0;
-    attend_row<T, kP, kC>(kk, vv, q + ((size_t)r * n_heads + h) * D,
-                          q_pos[r], acc + (size_t)rr * D, m_s + rr, l_s + rr,
-                          D, page, c0, kvbase, ctx, window, softcap, scale,
-                          lane);
+// Shared-memory layout of one instantiation: a row (of q, K or V) holds
+// kDP >= D elements plus a skew that spreads ldmatrix rows over banks.
+template <typename T, int kDP>
+struct Tile {
+  static constexpr int kStride = kDP + 16 / (int)sizeof(T);
+  static constexpr int kStages = (sizeof(T) == 2 && kDP <= 128) ? 3 : 2;
+  static constexpr size_t kRowBytes = (size_t)kStride * sizeof(T);
+  static constexpr size_t kQBytes = kMRows * kRowBytes;
+  static constexpr size_t kStageBytes = 2 * kKeys * kRowBytes + kKeys * 4;
+  static constexpr size_t kSmem = kQBytes + kStages * kStageBytes;
+  // the ring also holds the four warps' (o, m, l) of a key-split item
+  static_assert(kWarpsF * 16 * (kDP + 2) * 4 <= kStages * kStageBytes,
+                "ring too small for the warps' states");
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Copies of `bytes` (16 or 4) from global to shared memory, of which the
+// first `src_bytes` are read and the rest zero-filled.
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int src_bytes, bool wide) {
+  if (wide)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One row of D elements (src, in global memory) into a shared row of kDP
+// elements (dst), zero-filled past D, or all zeros when !valid (src is
+// then only a valid address that is not read); chunks part, part + parts,
+// ... of the row.
+template <typename T, int kDP>
+__device__ __forceinline__ void copy_row(T* dst, const T* src, bool valid,
+                                         int D, bool wide, int part,
+                                         int parts) {
+  const int chunk = wide ? 16 : 4;
+  const int have = valid ? D * (int)sizeof(T) : 0;
+  const int n = kDP * (int)sizeof(T) / chunk;
+  for (int c = part; c < n; c += parts) {
+    const int off = c * chunk;
+    const int b = min(max(have - off, 0), chunk);
+    cp_async(reinterpret_cast<char*>(dst) + off,
+             reinterpret_cast<const char*>(src) + (b ? off : 0), b, wide);
   }
 }
 
-// What a warp needs of one item: its rows of the tile and its page.
-struct Item {
-  int first, hi, kvbase, ctx;
-  size_t page_off;  // element offset of the page's kv-head rows in a pool
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// c += a (16 x 8, row) . b (8 x 8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16_k8(float (&c)[4], const unsigned (&a)[2],
+                                            unsigned b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// c += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// A warp's scores S (16 M rows x NT * 8 keys) in the m16n8 accumulator
+// layout: s[nt][e] is row lane / 4 (+ 8 for e >= 2), key nt * 8 +
+// 2 * (lane % 4) + (e & 1).  NT is 4 (a stage's 32 keys) or 1 (8 keys).
+template <typename T, int kDP, int NT>
+__device__ __forceinline__ void scores(float (&s)[NT][4], const T* qs,
+                                       const T* ks, int D, int lane) {
+  using L = Tile<T, kDP>;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+  if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int kb = 0; kb < kDP; kb += 16) {
+      unsigned a[4];
+      ldsm_x4(a, qs + (lane & 15) * L::kStride + kb + (lane >> 4) * 8);
+      if constexpr (NT == 1) {
+        unsigned b[2];
+        ldsm_x2(b, ks + (lane & 7) * L::kStride + kb + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[0], a, b[0], b[1]);
+      } else {
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          unsigned b[4];
+          ldsm_x4(b, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) *
+                              L::kStride +
+                         kb + ((lane >> 3) & 1) * 8);
+          mma_bf16(s[2 * np], a, b[0], b[1]);
+          mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+    }
+  } else {
+    const float* qa = qs + (lane >> 2) * L::kStride;
+    const float* qb = qa + 8 * L::kStride;
+    const float* kr = ks + 2 * (lane & 3) * L::kStride;
+    for (int d = 0; d < D; d += 2) {
+      const float2 x = *reinterpret_cast<const float2*>(qa + d);
+      const float2 y = *reinterpret_cast<const float2*>(qb + d);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float2 k = *reinterpret_cast<const float2*>(
+              kr + (nt * 8 + e) * L::kStride + d);
+          s[nt][e] = fmaf(x.x, k.x, fmaf(x.y, k.y, s[nt][e]));
+          s[nt][2 + e] = fmaf(y.x, k.x, fmaf(y.y, k.y, s[nt][2 + e]));
+        }
+      }
+    }
+  }
+}
+
+// o (16 M rows x kDP dims, m16n8 layout: o[nd][e] is row lane / 4 (+ 8
+// for e >= 2), dim nd * 8 + 2 * (lane % 4) + (e & 1)) += P . V over the
+// warp's NT * 8 keys; p in the layout of scores().
+template <typename T, int kDP, int NT>
+__device__ __forceinline__ void accumulate(float (&o)[kDP / 8][4],
+                                           const float (&p)[NT][4],
+                                           const T* vs, int D, int lane) {
+  using L = Tile<T, kDP>;
+  if constexpr (sizeof(T) == 2) {
+    // P as hi + lo bf16 A fragments: fragment i holds rows + 8 for odd i
+    // and keys + 8 for i >= 2
+    auto split_p = [](float x, float y, unsigned& hi, unsigned& lo) {
+      hi = pack_bf16(x, y);
+      const __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&hi);
+      lo = pack_bf16(x - __low2float(h), y - __high2float(h));
+    };
+    if constexpr (NT == 1) {
+      unsigned hi[2], lo[2];
+      split_p(p[0][0], p[0][1], hi[0], lo[0]);
+      split_p(p[0][2], p[0][3], hi[1], lo[1]);
+#pragma unroll
+      for (int nd = 0; nd < kDP / 8; nd += 4) {
+        unsigned b[4];
+        ldsm_x4_t(b, vs + (lane & 7) * L::kStride + nd * 8 + (lane >> 3) * 8);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mma_bf16_k8(o[nd + j], hi, b[j]);
+          mma_bf16_k8(o[nd + j], lo, b[j]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kc = 0; kc < NT / 2; ++kc) {
+        unsigned hi[4], lo[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float* f = p[2 * kc + (i >> 1)];
+          split_p(f[2 * (i & 1)], f[2 * (i & 1) + 1], hi[i], lo[i]);
+        }
+#pragma unroll
+        for (int nd = 0; nd < kDP / 8; nd += 2) {
+          unsigned b[4];
+          ldsm_x4_t(b, vs + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                L::kStride +
+                           nd * 8 + (lane >> 4) * 8);
+          mma_bf16(o[nd], hi, b[0], b[1]);
+          mma_bf16(o[nd], lo, b[0], b[1]);
+          mma_bf16(o[nd + 1], hi, b[2], b[3]);
+          mma_bf16(o[nd + 1], lo, b[2], b[3]);
+        }
+      }
+    }
+  } else {
+    const float* vr = vs + 2 * (lane & 3);
+#pragma unroll
+    for (int key = 0; key < NT * 8; ++key) {
+      // p of (row, key) lives on quad lane (key % 8) / 2
+      const int src = (lane & ~3) | ((key & 7) >> 1);
+      const float pa = __shfl_sync(kFull, p[key >> 3][key & 1], src);
+      const float pb = __shfl_sync(kFull, p[key >> 3][2 + (key & 1)], src);
+#pragma unroll
+      for (int nd = 0; nd < kDP / 8; ++nd) {
+        if (nd * 8 < D) {
+          const float2 v =
+              *reinterpret_cast<const float2*>(vr + key * L::kStride + nd * 8);
+          o[nd][0] = fmaf(pa, v.x, o[nd][0]);
+          o[nd][1] = fmaf(pa, v.y, o[nd][1]);
+          o[nd][2] = fmaf(pb, v.x, o[nd][2]);
+          o[nd][3] = fmaf(pb, v.y, o[nd][3]);
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
+  return fmaxf(v, __shfl_xor_sync(kFull, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(kFull, v, 1);
+  return v + __shfl_xor_sync(kFull, v, 2);
+}
+
+// One warp's online-softmax update of its 16 M rows (q tile qs, logical
+// positions qp of rows lane / 4 and lane / 4 + 8, -1: no row) against NT * 8
+// keys of a stage (ks, vs, their kv positions kv; INT_MAX: no key).
+template <typename T, int kDP, int NT>
+__device__ __forceinline__ void stage_update(
+    float (&o)[kDP / 8][4], float (&m_run)[2], float (&l_run)[2],
+    const T* qs, const T* ks, const T* vs, const int* kv, const int (&qp)[2],
+    int ctx, int window, float softcap, float scale, int D, int lane) {
+  float s[NT][4];
+  scores<T, kDP, NT>(s, qs, ks, D, lane);
+  float cmax[2] = {kNegInf, kNegInf};
+  unsigned vis = 0;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      const int kvp = kv[nt * 8 + 2 * (lane & 3) + (e & 1)];
+      float x = s[nt][e] * scale;
+      if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+      if (kvp <= qp[h] && kvp < ctx && (window <= 0 || qp[h] - kvp < window)) {
+        vis |= 1u << (nt * 4 + e);
+        cmax[h] = fmaxf(cmax[h], x);
+      }
+      s[nt][e] = x;
+    }
+  }
+  float alpha[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m_new = fmaxf(m_run[h], quad_max(cmax[h]));
+    alpha[h] = expf(m_run[h] - m_new);
+    m_run[h] = m_new;
+    l_run[h] *= alpha[h];
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      // a masked key's p is 0, never exp(NEG_INF - NEG_INF)
+      const float p =
+          (vis >> (nt * 4 + e)) & 1u ? expf(s[nt][e] - m_run[h]) : 0.f;
+      s[nt][e] = p;
+      l_run[h] += p;
+    }
+  }
+#pragma unroll
+  for (int nd = 0; nd < kDP / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nd][e] *= alpha[e >> 1];
+  accumulate<T, kDP, NT>(o, s, vs, D, lane);
+}
+
+// The work units (see msa_fused.build_units); counts = {units, merges}.
+struct Units {
+  const int *item0, *items, *row0, *rows, *seq, *part;
+  const int *mg_row0, *mg_rows, *mg_units, *counts;
 };
 
-template <typename T, int kP>
-__global__ void __launch_bounds__(kThreads, 1) msa_fused_kernel(
+template <typename T, int kDP>
+__global__ void __launch_bounds__(kThreadsF) msa_fused_kernel(
     const T* __restrict__ q,            // (T, H, D)
     const T* __restrict__ k_pages,      // (P, page, KH, D)
     const T* __restrict__ v_pages,      // (P, page, KH, D)
     T* __restrict__ out,                // (T, H, D)
-    const int* __restrict__ q_start,    // (N,)
-    const int* __restrict__ q_len,      // (N,)
+    float* __restrict__ part_o,         // (RUN_UNITS, T, H, D)
+    float* __restrict__ part_ml,        // (RUN_UNITS, T, H, 2)
     const int* __restrict__ ctx_lens,   // (N,)
     const int* __restrict__ q_pos,      // (T,)
-    const int* __restrict__ wl_seq,     // (W,)
     const int* __restrict__ wl_slot,    // (W,)
     const int* __restrict__ wl_kvbase,  // (W,)
-    const int* __restrict__ tile_first, // (n_tiles + 1,)
-    int n_rows, int n_heads, int n_kv_heads, int D, int page, int n_seqs,
-    int q_tile, int window, float softcap, float scale) {
-  extern __shared__ float smem[];
-  float* acc = smem;                    // (q_tile, D)
-  float* m_s = acc + q_tile * D;        // (q_tile,)
-  float* l_s = m_s + q_tile;            // (q_tile,)
-
-  const int tile = blockIdx.x;
-  const int h = blockIdx.y;
-  const int kvh = h / (n_heads / n_kv_heads);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row0 = tile * q_tile;
-
-  for (int i = threadIdx.x; i < q_tile * D; i += kThreads) acc[i] = 0.f;
-  for (int i = threadIdx.x; i < q_tile; i += kThreads) {
-    m_s[i] = kNegInf;
-    l_s[i] = 0.f;
-  }
-  __syncthreads();
-
+    Units u, int n_rows, int n_heads, int n_kv_heads, int D, int page,
+    int q_tile, int slices, int window, float softcap, float scale,
+    bool wide) {
+  using L = Tile<T, kDP>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int G = n_heads / n_kv_heads;
   const size_t key_stride = (size_t)n_kv_heads * D;
-  const size_t page_stride = (size_t)page * key_stride;
-  const int w_end = tile_first[tile + 1];
-  int base = tile_first[tile];
-  // lane i's view of item base - 32 + i, and the items of that group of
-  // 32 that touch this warp's rows and are not done yet
-  int g_first = 0, g_hi = 0, g_slot = 0, g_kvbase = 0, g_ctx = 0;
-  unsigned todo = 0;
-  auto next_item = [&](Item& it) -> bool {  // in item order
-    while (!todo) {
-      if (base >= w_end) return false;
-      const int w = base + lane;
-      const int s = w < w_end ? wl_seq[w] : n_seqs;
-      g_first = 0;
-      g_hi = 0;
-      if (s < n_seqs) {  // the sentinel item (s == n_seqs) masks every row
-        const int lo = max(q_start[s], row0);
-        g_hi = min(min(q_start[s] + q_len[s], row0 + q_tile), n_rows);
-        g_first = lo + ((warp - (lo - row0)) % kWarps + kWarps) % kWarps;
-        g_slot = wl_slot[w];
-        g_kvbase = wl_kvbase[w];
-        g_ctx = ctx_lens[s];
-      }
-      todo = __ballot_sync(kFull, g_first < g_hi);
-      base += 32;
-    }
-    const int src = __ffs(todo) - 1;
-    todo &= todo - 1;
-    it.first = __shfl_sync(kFull, g_first, src);
-    it.hi = __shfl_sync(kFull, g_hi, src);
-    it.kvbase = __shfl_sync(kFull, g_kvbase, src);
-    it.ctx = __shfl_sync(kFull, g_ctx, src);
-    it.page_off = (size_t)__shfl_sync(kFull, g_slot, src) * page_stride +
-                  (size_t)kvh * D;
-    return true;
-  };
+  const int per_unit = n_kv_heads * slices;
+  const int n_work = u.counts[0] * per_unit;
+  // stages of 32 key slots: ipp whole pages each, or a 32-key piece of a
+  // page longer than 32 keys (cpp pieces a page)
+  const int ipp = max(1, kKeys / page);
+  const int cpp = (page + kKeys - 1) / kKeys;
 
-  // The warp's work is a stream of (item, chunk of the page's keys); the
-  // next chunk's loads are issued before the current chunk's math.
-  using P2 = typename PairOf<T>::type;
-  constexpr int kC = ChunkOf<T, kP>::value;
-  P2 k_cur[kC][kP], v_cur[kC][kP], k_nxt[kC][kP], v_nxt[kC][kP];
-  Item cur, nxt;
-  int c0 = 0;
-  bool have = next_item(cur);
-  if (have)
-    load_chunk<T, kP, kC>(k_cur, v_cur, k_pages + cur.page_off,
-                          v_pages + cur.page_off, key_stride, 0, page, D,
-                          lane);
-  while (have) {
-    nxt = cur;
-    int c1 = c0 + kC;
-    bool more = true;
-    if (c1 >= page) {
-      c1 = 0;
-      more = next_item(nxt);
+  for (int wi = blockIdx.x; wi < n_work; wi += gridDim.x) {
+    const int unit = wi / per_unit;
+    const int kvh = (wi % per_unit) / slices;
+    const int m0 = (wi % slices) * kMRows;
+    const int rows = min(u.rows[unit], q_tile);
+    const int M = rows * G;
+    if (m0 >= M) continue;
+    const int row0 = u.row0[unit];
+    const int items = u.items[unit];
+    const int head0 = kvh * G;
+    if (items == 0) {  // rows no item covers: exact zeros
+      for (int i = tid; i < min(M - m0, kMRows) * D; i += kThreadsF) {
+        const int m = m0 + i / D;
+        out[((size_t)(row0 + m / G) * n_heads + head0 + m % G) * D + i % D] =
+            from_f32<T>(0.f);
+      }
+      continue;
     }
-    if (more)
-      load_chunk<T, kP, kC>(k_nxt, v_nxt, k_pages + nxt.page_off,
-                            v_pages + nxt.page_off, key_stride, c1, page, D,
-                            lane);
-    attend_chunk<T, kP, kC>(k_cur, v_cur, q, n_heads, h, acc, m_s, l_s,
-                            q_pos, row0, cur.first, cur.hi, D, page, c0,
-                            cur.kvbase, cur.ctx, window, softcap, scale,
-                            lane);
+    const int item0 = u.item0[unit];
+    const int ctx = ctx_lens[u.seq[unit]];
+    const int n_stages = page <= kKeys ? (items + ipp - 1) / ipp : items * cpp;
+
+    __syncthreads();  // the previous work item is done with shared memory
+    {  // the q tile: M-row m0 + i is row (m0 + i) / G, head (m0 + i) % G
+      const int i = tid >> 1;
+      const int m = m0 + i;
+      const T* src = m < M ? q + ((size_t)(row0 + m / G) * n_heads + head0 +
+                                  m % G) * D
+                           : q;
+      copy_row<T, kDP>(qs + i * L::kStride, src, m < M, D, wide, tid & 1, 2);
+    }
+    // where this thread's key slot of stage st comes from: the slot's
+    // element offset in a pool, its kv position (INT_MAX: no key), and
+    // whether it is a key of the unit
+    struct Loc {
+      size_t src;
+      int kv;
+      bool ok;
+    };
+    const int slot = tid >> 2;
+    auto locate = [&](int st) {
+      Loc c{0, INT_MAX, false};
+      int it, off;
+      if (page <= kKeys) {
+        it = st * ipp + slot / page;
+        off = slot % page;
+        c.ok = slot < ipp * page && it < items;
+      } else {
+        it = st / cpp;
+        off = (st % cpp) * kKeys + slot;
+        c.ok = st < n_stages && off < page;
+      }
+      if (c.ok) {
+        c.src = ((size_t)wl_slot[item0 + it] * page + off) * key_stride +
+                (size_t)kvh * D;
+        c.kv = wl_kvbase[item0 + it] + off;
+      }
+      return c;
+    };
+    auto issue = [&](int st, const Loc& c) {
+      unsigned char* base =
+          smem + L::kQBytes + (size_t)(st % L::kStages) * L::kStageBytes;
+      T* ks = reinterpret_cast<T*>(base);
+      T* vs = ks + kKeys * L::kStride;
+      if ((tid & 3) == 0)
+        reinterpret_cast<int*>(vs + kKeys * L::kStride)[slot] = c.kv;
+      copy_row<T, kDP>(ks + slot * L::kStride, k_pages + c.src, c.ok, D,
+                       wide, tid & 3, 4);
+      copy_row<T, kDP>(vs + slot * L::kStride, v_pages + c.src, c.ok, D,
+                       wide, tid & 3, 4);
+    };
 #pragma unroll
-    for (int jj = 0; jj < kC; ++jj) {
+    for (int st = 0; st < L::kStages - 1; ++st) {
+      if (st < n_stages) issue(st, locate(st));
+      cp_async_commit();
+    }
+    // the indices of the next stage to issue are read a stage ahead, so
+    // their latency hides behind the math
+    Loc ahead = locate(L::kStages - 1);
+
+    // A work item with more than 16 live M rows gives each warp 16 of
+    // them against all of a stage's keys; one with at most 16 (a decode
+    // unit: G of them) gives every warp the same rows against 8 of the
+    // stage's 32 keys, and merges the four warps' states at the end.
+    const bool split = M - m0 <= 16;
+    const int mw = split ? m0 : m0 + warp * 16;
+    const bool active = mw < M;
+    // this thread's two M rows (lane / 4 and lane / 4 + 8 of its warp)
+    int qp[2];
 #pragma unroll
-      for (int i = 0; i < kP; ++i) {
-        k_cur[jj][i] = k_nxt[jj][i];
-        v_cur[jj][i] = v_nxt[jj][i];
+    for (int h = 0; h < 2; ++h) {
+      const int m = mw + (lane >> 2) + 8 * h;
+      qp[h] = m < M ? q_pos[row0 + m / G] : -1;  // -1: sees no key
+    }
+    float o[kDP / 8][4];
+#pragma unroll
+    for (int nd = 0; nd < kDP / 8; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+    float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+
+    for (int st = 0; st < n_stages; ++st) {
+      cp_async_wait<L::kStages - 2>();
+      __syncthreads();
+      if (st + L::kStages - 1 < n_stages) issue(st + L::kStages - 1, ahead);
+      cp_async_commit();
+      ahead = locate(st + L::kStages);
+      if (!active) continue;
+      const unsigned char* base =
+          smem + L::kQBytes + (size_t)(st % L::kStages) * L::kStageBytes;
+      const T* ks = reinterpret_cast<const T*>(base);
+      const T* vs = ks + kKeys * L::kStride;
+      const int* kv = reinterpret_cast<const int*>(vs + kKeys * L::kStride);
+      if (split) {
+        const int k0 = warp * 8;
+        stage_update<T, kDP, 1>(o, m_run, l_run, qs, ks + k0 * L::kStride,
+                                vs + k0 * L::kStride, kv + k0, qp, ctx,
+                                window, softcap, scale, D, lane);
+      } else {
+        stage_update<T, kDP, 4>(o, m_run, l_run, qs + warp * 16 * L::kStride,
+                                ks, vs, kv, qp, ctx, window, softcap, scale,
+                                D, lane);
       }
     }
-    cur = nxt;
-    c0 = c1;
-    have = more;
-  }
 
-  __syncthreads();
-  const int rows = min(q_tile, n_rows - row0);
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
-    const int rr = i / D;
-    const int d = i - rr * D;
-    out[((size_t)(row0 + rr) * n_heads + h) * D + d] =
-        from_f32<T>(acc[i] / fmaxf(l_s[rr], 1e-30f));
+    if (!active) continue;
+    float l_row[2] = {quad_sum(l_run[0]), quad_sum(l_run[1])};
+    if (split) {  // merge the warps' states, in warp order, into warp 0
+      float* xo = reinterpret_cast<float*>(smem + L::kQBytes);  // (4,16,kDP)
+      float* xm = xo + kWarpsF * 16 * kDP;                        // (4, 16)
+      float* xl = xm + kWarpsF * 16;                              // (4, 16)
+      __syncthreads();  // every warp is done with the ring
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = (lane >> 2) + 8 * h;
+#pragma unroll
+        for (int nd = 0; nd < kDP / 8; ++nd)
+          *reinterpret_cast<float2*>(
+              xo + (warp * 16 + r) * kDP + nd * 8 + 2 * (lane & 3)) =
+              make_float2(o[nd][2 * h], o[nd][2 * h + 1]);
+        if ((lane & 3) == 0) {
+          xm[warp * 16 + r] = m_run[h];
+          xl[warp * 16 + r] = l_row[h];
+        }
+      }
+      __syncthreads();
+      if (warp != 0) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = (lane >> 2) + 8 * h;
+        float mm = kNegInf;
+#pragma unroll
+        for (int w = 0; w < kWarpsF; ++w) mm = fmaxf(mm, xm[w * 16 + r]);
+        float wt[kWarpsF], ll = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarpsF; ++w) {
+          wt[w] = expf(xm[w * 16 + r] - mm);
+          ll = fmaf(xl[w * 16 + r], wt[w], ll);
+        }
+#pragma unroll
+        for (int nd = 0; nd < kDP / 8; ++nd) {
+          float x = 0.f, y = 0.f;
+#pragma unroll
+          for (int w = 0; w < kWarpsF; ++w) {
+            const float2 v = *reinterpret_cast<const float2*>(
+                xo + (w * 16 + r) * kDP + nd * 8 + 2 * (lane & 3));
+            x = fmaf(v.x, wt[w], x);
+            y = fmaf(v.y, wt[w], y);
+          }
+          o[nd][2 * h] = x;
+          o[nd][2 * h + 1] = y;
+        }
+        m_run[h] = mm;
+        l_row[h] = ll;
+      }
+    }
+    const int part = u.part[unit];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = mw + (lane >> 2) + 8 * h;
+      const float l = l_row[h];
+      if (m >= M) continue;
+      const size_t at = (size_t)(row0 + m / G) * n_heads + head0 + m % G;
+      if (part < 0) {
+        const float inv = 1.f / fmaxf(l, 1e-30f);
+        T* dst = out + at * D;
+#pragma unroll
+        for (int nd = 0; nd < kDP / 8; ++nd) {
+          const int d = nd * 8 + 2 * (lane & 3);
+          if (d < D) {
+            dst[d] = from_f32<T>(o[nd][2 * h] * inv);
+            dst[d + 1] = from_f32<T>(o[nd][2 * h + 1] * inv);
+          }
+        }
+      } else {
+        const size_t pat = (size_t)part * n_rows * n_heads + at;
+        float* dst = part_o + pat * D;
+#pragma unroll
+        for (int nd = 0; nd < kDP / 8; ++nd) {
+          const int d = nd * 8 + 2 * (lane & 3);
+          if (d < D)
+            *reinterpret_cast<float2*>(dst + d) =
+                make_float2(o[nd][2 * h], o[nd][2 * h + 1]);
+        }
+        if ((lane & 3) == 0)
+          *reinterpret_cast<float2*>(part_ml + pat * 2) =
+              make_float2(m_run[h], l);
+      }
+    }
   }
 }
 
-template <typename T, int kP>
+// The runs that were cut: out = sum_k o_k e^(m_k - m) / max(sum_k l_k
+// e^(m_k - m), 1e-30), m = max_k m_k, over units k = 0, 1, ... in order.
+// A block task is 256 output pairs of dims of one (run, row): one pair a
+// thread, the units' partials read side by side.
+template <typename T>
+__global__ void __launch_bounds__(256) msa_fused_merge_kernel(
+    T* __restrict__ out, const float* __restrict__ part_o,
+    const float* __restrict__ part_ml, Units u, int n_rows, int n_heads,
+    int D, int q_tile) {
+  const size_t plane = (size_t)n_rows * n_heads;
+  const int pairs = n_heads * (D / 2);  // output pairs of a row
+  const int chunks = (pairs + 255) / 256;
+  const int n_tasks = u.counts[1] * q_tile * chunks;
+  for (int task = blockIdx.x; task < n_tasks; task += gridDim.x) {
+    const int run = task / (q_tile * chunks);
+    const int r = (task / chunks) % q_tile;
+    const int i = (task % chunks) * 256 + threadIdx.x;
+    if (r >= u.mg_rows[run] || i >= pairs) continue;
+    const int n = u.mg_units[run];
+    const size_t at = (size_t)(u.mg_row0[run] + r) * n_heads + i / (D / 2);
+    const int d = 2 * (i % (D / 2));
+    float m = kNegInf;
+#pragma unroll 4
+    for (int k = 0; k < n; ++k) m = fmaxf(m, part_ml[(k * plane + at) * 2]);
+    float l = 0.f, x = 0.f, y = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < n; ++k) {
+      const float2 ml =
+          *reinterpret_cast<const float2*>(part_ml + (k * plane + at) * 2);
+      const float2 v = *reinterpret_cast<const float2*>(
+          part_o + (k * plane + at) * D + d);
+      const float w = expf(ml.x - m);
+      l = fmaf(ml.y, w, l);
+      x = fmaf(v.x, w, x);
+      y = fmaf(v.y, w, y);
+    }
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    out[at * D + d] = from_f32<T>(x * inv);
+    out[at * D + d + 1] = from_f32<T>(y * inv);
+  }
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 0;
+  }
+  return n;
+}
+
+template <typename T, int kDP>
 int launch(const void* q, const void* k_pages, const void* v_pages, void* out,
-           const int* q_start, const int* q_len, const int* ctx_lens,
-           const int* q_pos, const int* wl_seq, const int* wl_slot,
-           const int* wl_kvbase, const int* tile_first, int n_rows,
-           int n_heads, int n_kv_heads, int D, int page, int n_seqs,
-           int q_tile, int n_tiles, int window, float softcap,
+           float* part_o, float* part_ml, const int* ctx_lens,
+           const int* q_pos, const int* wl_slot, const int* wl_kvbase,
+           const Units& u, int n_rows, int n_heads, int n_kv_heads, int D,
+           int page, int q_tile, int window, float softcap,
            cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)q_tile * D + 2 * (size_t)q_tile);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      msa_fused_kernel<T, kP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  using L = Tile<T, kDP>;
+  static_assert(L::kSmem <= kMaxSmem, "shared memory");
+  static int blocks_per_sm = 0;
+  if (blocks_per_sm == 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        msa_fused_kernel<T, kDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)L::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks_per_sm, msa_fused_kernel<T, kDP>, kThreadsF, L::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    if (blocks_per_sm == 0) return (int)cudaErrorInvalidConfiguration;
+  }
+  const int sms = sm_count();
+  if (sms == 0) return (int)cudaErrorNoDevice;
+  const int G = n_heads / n_kv_heads;
+  const int slices = (min(q_tile, n_rows) * G + kMRows - 1) / kMRows;
+  // 16-byte copies need 16-byte aligned rows
+  const bool wide = (D * sizeof(T)) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(k_pages) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(v_pages) % 16 == 0;
   const float scale = (float)(1.0 / sqrt((double)D));
-  dim3 grid(n_tiles, n_heads);
-  msa_fused_kernel<T, kP><<<grid, kThreads, smem, stream>>>(
+  msa_fused_kernel<T, kDP><<<sms * blocks_per_sm, kThreadsF, L::kSmem,
+                             stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<T*>(out), q_start, q_len,
-      ctx_lens, q_pos, wl_seq, wl_slot, wl_kvbase, tile_first, n_rows,
-      n_heads, n_kv_heads, D, page, n_seqs, q_tile, window, softcap, scale);
+      static_cast<const T*>(v_pages), static_cast<T*>(out), part_o, part_ml,
+      ctx_lens, q_pos, wl_slot, wl_kvbase, u, n_rows, n_heads, n_kv_heads, D,
+      page, q_tile, slices, window, softcap, scale, wide);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  msa_fused_merge_kernel<T><<<8 * sms, 256, 0, stream>>>(
+      static_cast<T*>(out), part_o, part_ml, u, n_rows, n_heads, D,
+      min(q_tile, n_rows));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_for_dim(const void* q, const void* k_pages, const void* v_pages,
-                   void* out, const int* q_start, const int* q_len,
-                   const int* ctx_lens, const int* q_pos, const int* wl_seq,
-                   const int* wl_slot, const int* wl_kvbase,
-                   const int* tile_first, int n_rows, int n_heads,
-                   int n_kv_heads, int D, int page, int n_seqs, int q_tile,
-                   int n_tiles, int window, float softcap,
-                   cudaStream_t stream) {
-#define MSA_LAUNCH(P)                                                        \
-  return launch<T, P>(q, k_pages, v_pages, out, q_start, q_len, ctx_lens,    \
-                      q_pos, wl_seq, wl_slot, wl_kvbase, tile_first, n_rows, \
-                      n_heads, n_kv_heads, D, page, n_seqs, q_tile, n_tiles, \
-                      window, softcap, stream)
-  if (D <= 64) MSA_LAUNCH(1);
-  if (D <= 128) MSA_LAUNCH(2);
-  MSA_LAUNCH(4);
+                   void* out, float* part_o, float* part_ml,
+                   const int* ctx_lens, const int* q_pos, const int* wl_slot,
+                   const int* wl_kvbase, const Units& u, int n_rows,
+                   int n_heads, int n_kv_heads, int D, int page, int q_tile,
+                   int window, float softcap, cudaStream_t stream) {
+#define MSA_LAUNCH(DP)                                                     \
+  return launch<T, DP>(q, k_pages, v_pages, out, part_o, part_ml, ctx_lens, \
+                       q_pos, wl_slot, wl_kvbase, u, n_rows, n_heads,       \
+                       n_kv_heads, D, page, q_tile, window, softcap, stream)
+  if (D <= 32) MSA_LAUNCH(32);
+  if (D <= 64) MSA_LAUNCH(64);
+  if (D <= 128) MSA_LAUNCH(128);
+  MSA_LAUNCH(256);
 #undef MSA_LAUNCH
 }
 
@@ -249,32 +734,39 @@ int launch_for_dim(const void* q, const void* k_pages, const void* v_pages,
 
 extern "C" {
 
-// Launches on `stream` without synchronising; returns cudaGetLastError()
-// (0 on success).  dtype: 0 = float32, 1 = bfloat16.  D must be even and
-// at most 256.
+// Launches the kernel and the merge on `stream` without synchronising;
+// returns cudaGetLastError() (0 on success).  dtype: 0 = float32, 1 =
+// bfloat16.  D must be even and at most 256.  part_o / part_ml are f32
+// scratch of (RUN_UNITS, n_rows, H, D) and (RUN_UNITS, n_rows, H, 2).
 int msa_fused_launch(const void* q, const void* k_pages, const void* v_pages,
-                     void* out, const int* q_start, const int* q_len,
-                     const int* ctx_lens, const int* q_pos, const int* wl_seq,
+                     void* out, void* part_o, void* part_ml,
+                     const int* ctx_lens, const int* q_pos,
                      const int* wl_slot, const int* wl_kvbase,
-                     const int* tile_first, int n_rows, int n_heads,
-                     int n_kv_heads, int D, int page, int n_seqs, int q_tile,
-                     int n_tiles, int window, float softcap, int dtype,
-                     void* stream) {
-  if (n_kv_heads <= 0 || n_heads % n_kv_heads != 0 || n_tiles <= 0 ||
+                     const int* u_item0, const int* u_items,
+                     const int* u_row0, const int* u_rows, const int* u_seq,
+                     const int* u_part, const int* mg_row0,
+                     const int* mg_rows, const int* mg_units,
+                     const int* unit_counts, int n_rows, int n_heads,
+                     int n_kv_heads, int D, int page, int q_tile, int window,
+                     float softcap, int dtype, void* stream) {
+  if (n_kv_heads <= 0 || n_heads % n_kv_heads != 0 || n_rows <= 0 ||
       q_tile <= 0 || page <= 0 || D <= 0 || D % 2 != 0 || D > 256)
     return (int)cudaErrorInvalidValue;
+  const Units u{u_item0, u_items, u_row0,  u_rows,   u_seq,
+                u_part,  mg_row0, mg_rows, mg_units, unit_counts};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* po = static_cast<float*>(part_o);
+  float* pml = static_cast<float*>(part_ml);
   if (dtype == 0)
-    return launch_for_dim<float>(q, k_pages, v_pages, out, q_start, q_len,
-                                 ctx_lens, q_pos, wl_seq, wl_slot, wl_kvbase,
-                                 tile_first, n_rows, n_heads, n_kv_heads, D,
-                                 page, n_seqs, q_tile, n_tiles, window,
+    return launch_for_dim<float>(q, k_pages, v_pages, out, po, pml, ctx_lens,
+                                 q_pos, wl_slot, wl_kvbase, u, n_rows,
+                                 n_heads, n_kv_heads, D, page, q_tile, window,
                                  softcap, st);
   if (dtype == 1)
     return launch_for_dim<__nv_bfloat16>(
-        q, k_pages, v_pages, out, q_start, q_len, ctx_lens, q_pos, wl_seq,
-        wl_slot, wl_kvbase, tile_first, n_rows, n_heads, n_kv_heads, D, page,
-        n_seqs, q_tile, n_tiles, window, softcap, st);
+        q, k_pages, v_pages, out, po, pml, ctx_lens, q_pos, wl_slot,
+        wl_kvbase, u, n_rows, n_heads, n_kv_heads, D, page, q_tile, window,
+        softcap, st);
   return (int)cudaErrorInvalidValue;
 }
 

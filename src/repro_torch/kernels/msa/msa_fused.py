@@ -5,8 +5,12 @@ One dispatch per layer serves every prefill chunk and every decode row of
 a step over a flattened ``(T, H, D)`` stream with per-sequence
 ``q_start``/``q_len`` runs (decode rows are runs of length 1).  The host
 builds a compacted (sequence, q-tile, kv-page) work-list
-(:func:`build_worklist`, a copy of the JAX package's) and the per-tile
-item ranges the kernel walks (:func:`tile_ranges`).
+(:func:`build_worklist`, a copy of the JAX package's) and cuts it into the
+work units the kernel runs (:func:`build_units`): pieces of at most
+``UNIT_PAGES`` pages (and at most ``RUN_UNITS`` pieces) of one
+(sequence, q tile) run, so a long context is spread over several blocks;
+the units of a cut run write partials that a merge in the same call
+combines in a fixed order.
 
 The kernel is built with ``nvcc`` from the sources in this package into
 ``build/`` at the repository root on first use and bound with ``ctypes``
@@ -27,6 +31,16 @@ from repro_torch.kernels.msa import _build
 # work-list field order — assembly, packing, and the kernel agree on it
 WL_FIELDS = ("wl_seq", "wl_qtile", "wl_slot", "wl_kvbase", "wl_init",
              "wl_last")
+# work-unit field order (build_units): per unit, then per cut run (the
+# merges), then the two real counts {units, merges}
+UNIT_FIELDS = ("u_item0", "u_items", "u_row0", "u_rows", "u_seq", "u_part",
+               "mg_row0", "mg_rows", "mg_units", "unit_counts")
+# a unit holds at most UNIT_PAGES pages of its run, and a run is cut into
+# at most RUN_UNITS units (a run longer than RUN_UNITS * UNIT_PAGES pages
+# shares its pages evenly among RUN_UNITS units); RUN_UNITS sizes the
+# kernel's partial scratch, (RUN_UNITS, T, H, D) f32
+UNIT_PAGES = 32
+RUN_UNITS = 8
 
 
 def build_worklist(
@@ -126,10 +140,10 @@ def tile_ranges(wl: Dict[str, np.ndarray], n_tiles: int) -> np.ndarray:
     """``tile_first`` (n_tiles+1,) int32: tile t's items are
     ``[tile_first[t], tile_first[t+1])``.
 
-    Derived from the runs ``wl_init``/``wl_last`` mark.  A CUDA block per
-    tile walks its range in order — the TPU grid's sequential W axis
-    becomes a loop inside the block.  Padding items (``pad_worklist``)
-    lie past ``tile_first[n_tiles]`` and are never visited."""
+    Derived from the runs ``wl_init``/``wl_last`` mark; raises unless the
+    work-list is one contiguous item run per tile, which
+    :func:`build_units` relies on.  Padding items (``pad_worklist``) lie
+    past ``tile_first[n_tiles]``."""
     starts = np.flatnonzero(wl["wl_init"])
     ends = np.flatnonzero(wl["wl_last"]) + 1
     if (starts.shape[0] != n_tiles or ends.shape[0] != n_tiles
@@ -141,13 +155,97 @@ def tile_ranges(wl: Dict[str, np.ndarray], n_tiles: int) -> np.ndarray:
     return np.append(starts, ends[-1]).astype(np.int32)
 
 
+def build_units(wl: Dict[str, np.ndarray], q_start: np.ndarray,
+                q_len: np.ndarray, *, n_rows: int, q_tile: int,
+                n_tiles: int, pad_to: Optional[int] = None
+                ) -> Dict[str, np.ndarray]:
+    """The kernel's work units of a (possibly padded) work-list, in
+    vectorized numpy, as a dict in ``UNIT_FIELDS``.
+
+    A *run* is the items of one (q tile, sequence): rows
+    ``[u_row0, u_row0 + u_rows)`` of that tile against the run's pages.  A
+    run of n items becomes ``min(RUN_UNITS, ceil(n / UNIT_PAGES))`` units
+    of consecutive items, cut evenly; a unit reads items ``[u_item0,
+    u_item0 + u_items)``.  A run that is one unit writes the output
+    directly (``u_part == -1``); the k-th unit of a cut run writes partial
+    k of its rows, and the run gets a merge (``mg_row0``, ``mg_rows``,
+    ``mg_units``).  Rows of ``[0, n_rows)`` that no run covers (padding,
+    all-padding tiles) get units of no item (``u_items == 0``), one per
+    uncovered span of a tile, which write exact zeros.  Units of runs come
+    first, in work-list order, then the zero units in row order.
+
+    ``pad_to`` pads the unit fields to ``pad_to`` and the merge fields to
+    ``pad_to // 2`` with units and merges of no row; ``unit_counts`` holds
+    the real counts, which the kernel reads."""
+    tile_ranges(wl, n_tiles)        # one contiguous item run per q tile
+    n = q_start.shape[0]
+    seq, tile = wl["wl_seq"], wl["wl_qtile"]
+    idx = np.flatnonzero(seq < n)   # real items (no sentinel, no padding)
+    s_i, t_i = seq[idx].astype(np.int64), tile[idx].astype(np.int64)
+    new = np.ones(idx.shape[0], bool)
+    new[1:] = ((s_i[1:] != s_i[:-1]) | (t_i[1:] != t_i[:-1])
+               | (idx[1:] != idx[:-1] + 1))
+    starts = np.flatnonzero(new)
+    r_item0 = idx[starts]
+    r_n = np.diff(np.append(starts, idx.shape[0]))
+    r_s, r_t = s_i[starts], t_i[starts]
+    qs = q_start.astype(np.int64)
+    lo = np.maximum(qs[r_s], r_t * q_tile)
+    hi = np.minimum(np.minimum(qs[r_s] + q_len[r_s], (r_t + 1) * q_tile),
+                    n_rows)
+    r_units = np.minimum(RUN_UNITS, -(-r_n // UNIT_PAGES))
+    run = np.repeat(np.arange(r_n.shape[0]), r_units)
+    k = np.arange(run.shape[0]) - np.repeat(np.cumsum(r_units) - r_units,
+                                            r_units)
+    a = r_item0[run] + k * r_n[run] // r_units[run]
+    b = r_item0[run] + (k + 1) * r_n[run] // r_units[run]
+    cut = r_units > 1
+
+    # rows no run covers, cut at tile edges
+    cover = (np.bincount(lo, minlength=n_rows + 1)
+             - np.bincount(hi, minlength=n_rows + 1))
+    free = np.cumsum(cover)[:n_rows] == 0
+    rows = np.arange(n_rows)
+    prev_free = np.concatenate([[False], free[:-1]])
+    next_free = np.concatenate([free[1:], [False]])
+    z_lo = np.flatnonzero(free & (~prev_free | (rows % q_tile == 0)))
+    z_hi = np.flatnonzero(free & (~next_free | ((rows + 1) % q_tile == 0)))
+    z_hi += 1
+
+    nz = z_lo.shape[0]
+    out = {
+        "u_item0": np.concatenate([a, np.zeros(nz, np.int64)]),
+        "u_items": np.concatenate([b - a, np.zeros(nz, np.int64)]),
+        "u_row0": np.concatenate([lo[run], z_lo]),
+        "u_rows": np.concatenate([(hi - lo)[run], z_hi - z_lo]),
+        "u_seq": np.concatenate([r_s[run], np.full(nz, n)]),
+        "u_part": np.concatenate([np.where(cut[run], k, -1),
+                                  np.full(nz, -1)]),
+        "mg_row0": lo[cut], "mg_rows": (hi - lo)[cut],
+        "mg_units": r_units[cut],
+    }
+    n_units, n_merges = out["u_item0"].shape[0], out["mg_row0"].shape[0]
+    out["unit_counts"] = np.asarray([n_units, n_merges])
+    if pad_to is not None:
+        if n_units > pad_to:
+            raise ValueError(f"{n_units} work units > pad_to={pad_to}")
+        fills = {"u_seq": n, "u_part": -1}
+        for f in UNIT_FIELDS[:6]:
+            out[f] = np.concatenate(
+                [out[f], np.full(pad_to - n_units, fills.get(f, 0))])
+        for f in UNIT_FIELDS[6:9]:
+            out[f] = np.concatenate(
+                [out[f], np.zeros(pad_to // 2 - n_merges, np.int64)])
+    return {f: a.astype(np.int32) for f, a in out.items()}
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
 _SIGNATURES = {
-    "msa_fused_launch": (ctypes.c_int, [ctypes.c_void_p] * 12
-                         + [ctypes.c_int] * 9
+    "msa_fused_launch": (ctypes.c_int, [ctypes.c_void_p] * 20
+                         + [ctypes.c_int] * 7
                          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
     "msa_fused_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
@@ -163,23 +261,23 @@ def msa_fused_cuda(
     q: torch.Tensor,              # (T, H, D) bf16 | f32
     k_pages: torch.Tensor,        # (P, page, KH, D)
     v_pages: torch.Tensor,
-    q_start: torch.Tensor,        # (N,) int32
-    q_len: torch.Tensor,          # (N,) int32
     q_pos: torch.Tensor,          # (T,) int32
     context_lens: torch.Tensor,   # (N,) int32
     worklist: Sequence[torch.Tensor],   # WL_FIELDS order, each (W,) int32
-    tile_first: torch.Tensor,     # (n_tiles+1,) int32, see tile_ranges
+    units: Sequence[torch.Tensor],      # UNIT_FIELDS order, see build_units
     *,
     window: int = 0,
     softcap: float = 0.0,
     q_tile: int = 128,
 ) -> torch.Tensor:
-    """Launch the fused MSA kernel on ``torch.cuda.current_stream()``.
+    """Launch the fused MSA kernel, and the merge of the runs it cut, on
+    ``torch.cuda.current_stream()``.
 
     Validates every argument (device, dtype, shape, contiguity, head_dim,
     alignment) and raises on anything the kernel does not take; raises if
-    the launch reports an error.  Counts launches in
-    ``msa_fused_cuda.launches``."""
+    the launch reports an error.  ``q_tile`` is the work-list's q tile:
+    no unit has more rows.  Counts calls in ``msa_fused_cuda.launches``
+    (one a call: the kernel and its merge)."""
     name = "msa_fused_cuda"
     _build.check_attention_operands(name, q, k_pages, v_pages, q_dims=3)
     dev = q.device
@@ -187,28 +285,34 @@ def msa_fused_cuda(
     _, page, kh, _ = k_pages.shape
     if t == 0:
         raise ValueError(f"{name}: T=0 not served")
-    q_tile = min(q_tile, t)
-    n_tiles = -(-t // q_tile)
-    n = q_start.shape[0]
-    _build.check_i32(name, "q_start", q_start, (n,), dev)
-    _build.check_i32(name, "q_len", q_len, (n,), dev)
-    _build.check_i32(name, "context_lens", context_lens, (n,), dev)
     _build.check_i32(name, "q_pos", q_pos, (t,), dev)
-    _build.check_i32(name, "tile_first", tile_first, (n_tiles + 1,), dev)
-    if len(worklist) != len(WL_FIELDS):
-        raise ValueError(f"{name}: worklist needs {WL_FIELDS}")
+    _build.check_i32(name, "context_lens", context_lens,
+                     (context_lens.shape[0],), dev)
+    if len(worklist) != len(WL_FIELDS) or len(units) != len(UNIT_FIELDS):
+        raise ValueError(f"{name}: worklist needs {WL_FIELDS} and units "
+                         f"{UNIT_FIELDS}")
     wl = dict(zip(WL_FIELDS, worklist))
+    un = dict(zip(UNIT_FIELDS, units))
     w = wl["wl_seq"].shape[0]
     for f in WL_FIELDS:
         _build.check_i32(name, f, wl[f], (w,), dev)
+    n_units, n_merges = un["u_item0"].shape[0], un["mg_row0"].shape[0]
+    for f in UNIT_FIELDS:
+        size = (2 if f == "unit_counts"
+                else n_merges if f.startswith("mg_") else n_units)
+        _build.check_i32(name, f, un[f], (size,), dev)
 
     lib = load_library()
     out = torch.empty_like(q)
+    part_o = torch.empty((RUN_UNITS, t, h, d), dtype=torch.float32,
+                         device=dev)
+    part_ml = torch.empty((RUN_UNITS, t, h, 2), dtype=torch.float32,
+                          device=dev)
     ptrs = [x.data_ptr() for x in (
-        q, k_pages, v_pages, out, q_start, q_len, context_lens, q_pos,
-        wl["wl_seq"], wl["wl_slot"], wl["wl_kvbase"], tile_first)]
+        q, k_pages, v_pages, out, part_o, part_ml, context_lens, q_pos,
+        wl["wl_slot"], wl["wl_kvbase"], *(un[f] for f in UNIT_FIELDS))]
     err = lib.msa_fused_launch(
-        *ptrs, t, h, kh, d, page, n, q_tile, n_tiles, int(window),
+        *ptrs, t, h, kh, d, page, min(q_tile, t), int(window),
         float(softcap), _build.DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on_error(lib, "msa_fused", err)

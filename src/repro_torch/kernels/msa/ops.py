@@ -57,25 +57,24 @@ def msa_decode(q, k_pages, v_pages, block_tables, context_lens, *,
 
 
 def msa_fused(q, k_pages, v_pages, block_tables, context_lens, q_pos,
-              seq_ids, q_valid, *, q_start=None, q_len=None, worklist=None,
-              tile_first=None, window: int = 0, softcap: float = 0.0,
+              seq_ids, q_valid, *, worklist=None, units=None,
+              window: int = 0, softcap: float = 0.0,
               q_tile: int = 128) -> torch.Tensor:
     """One fused dispatch over the flattened (T, H, D) mixed token stream
     (prefill chunks + decode rows).  On the CPU the plain version resolves
-    each token's context through ``seq_ids``; on the card the kernel walks
-    the compacted work-list (``msa_fused.build_worklist``) tile by tile
-    (``tile_first``) with per-sequence ``q_start``/``q_len`` runs."""
+    each token's context through ``seq_ids``; on the card the kernel runs
+    the work units (``msa_fused.build_units``) of the compacted work-list
+    (``msa_fused.build_worklist``)."""
     if _on_cpu("msa_fused", q):
         return ref.msa_fused_ref(q, k_pages, v_pages, block_tables,
                                  context_lens, q_pos, seq_ids, q_valid,
                                  window=window, softcap=softcap)
-    if q_start is None or q_len is None or worklist is None \
-            or tile_first is None:
-        raise ValueError("msa_fused on cuda needs q_start/q_len, the "
-                         "work-list and tile_first")
-    return msa_fused_cuda(q, k_pages, v_pages, q_start, q_len, q_pos,
-                          context_lens, worklist, tile_first, window=window,
-                          softcap=softcap, q_tile=q_tile)
+    if worklist is None or units is None:
+        raise ValueError("msa_fused on cuda needs the work-list and its "
+                         "work units")
+    return msa_fused_cuda(q, k_pages, v_pages, q_pos, context_lens,
+                          worklist, units, window=window, softcap=softcap,
+                          q_tile=q_tile)
 
 
 write_kv_pages = ref.write_kv_pages

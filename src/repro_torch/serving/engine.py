@@ -49,15 +49,16 @@ from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.offload import HostHalf
 from repro_torch.kernels.msa import (
+    UNIT_FIELDS,
     WL_FIELDS,
     apply_page_copies,
     apply_swap_ins,
+    build_units,
     build_worklist,
     msa_decode,
     msa_fused,
     msa_prefill,
     pad_worklist,
-    tile_ranges,
     write_kv_pages,
 )
 from repro_torch.models.layers import apply_rope, rms_norm, swiglu_mlp
@@ -103,9 +104,10 @@ def pack_layout_for(ecfg: "EngineConfig", t_bucket: int, np_bucket: int,
                     w_bucket: int) -> Tuple[List[Tuple[str, int, int]], int]:
     """(name, offset, size) triples of the flat int32 pack buffer for one
     occupancy bucket of the single-device layout, plus its total length.
-    Beside the reference's fused fields it carries ``tile_first``, the
-    per-q-tile item ranges the fused CUDA kernel walks; the split layout
-    (``w_bucket`` unused) is the reference's as it is."""
+    Beside the reference's fused fields it carries the work units the
+    fused CUDA kernel runs (``UNIT_FIELDS``, :func:`unit_bucket` units and
+    half as many merges); the split layout (``w_bucket`` unused) is the
+    reference's as it is."""
     e = ecfg
     R, B = e.max_prefills, e.max_decodes
     if e.attn_mode == "fused":
@@ -116,7 +118,10 @@ def pack_layout_for(ecfg: "EngineConfig", t_bucket: int, np_bucket: int,
                   ("sel", R + B), ("qstart", n), ("qlen", n), ("ctx", n),
                   ("bt", n * np_bucket)]
         fields += [(f, w_bucket) for f in WL_FIELDS]
-        fields += [("tile_first", n_tiles + 1)]
+        u_b = unit_bucket(w_bucket, n_tiles)
+        fields += [(f, 2 if f == "unit_counts"
+                    else u_b // 2 if f.startswith("mg_") else u_b)
+                   for f in UNIT_FIELDS]
     else:
         t, NP = R * e.max_chunk + B, e.max_blocks_per_seq
         fields = [("tokens", t), ("positions", t), ("valid", t),
@@ -135,6 +140,15 @@ def pack_layout_for(ecfg: "EngineConfig", t_bucket: int, np_bucket: int,
     return layout, off
 
 
+def unit_bucket(w_bucket: int, n_tiles: int) -> int:
+    """Work units a fused step's pack holds: a run of n items is at most n
+    units, and the zero units are at most one a tile, since the fused
+    assembly packs every sequence's rows densely from row 0 (only the
+    tail is slack).  A function of the buckets, so a step's shapes stay
+    those of its ``(t, np, w)`` bucket."""
+    return w_bucket + n_tiles
+
+
 @dataclass(frozen=True)
 class EngineConfig:
     num_pages: int                 # KV pool pages (= block manager blocks)
@@ -144,9 +158,10 @@ class EngineConfig:
     max_decodes: int = 64          # B
     max_blocks_per_seq: int = 64   # NP
     # rows of a work-list q tile.  The TPU kernel used 128 (its matrix
-    # unit's tile); the CUDA kernel runs one block per (q tile, head) with
-    # one row a warp, so 16 rows give a decode-only step of B rows B/16
-    # blocks a head instead of one
+    # unit's tile); the CUDA kernel stacks a unit's rows times the G heads
+    # of a GQA group into the 64 M rows of its products, so 16 rows fill
+    # them at G = 4 (Llama-3.1-8B) and a prefill chunk's tiles spread over
+    # many blocks
     q_tile: int = 16
     # "fused": one varlen attention dispatch per layer over the flattened
     # (T, H, D) mixed stream, with the occupancy bucket lattice.
@@ -367,6 +382,7 @@ class Engine:
         H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         if fused:
             worklist = tuple(inp[f] for f in WL_FIELDS)
+            units = tuple(inp[f] for f in UNIT_FIELDS)
             tq = min(e.q_tile, t_bucket)
         else:
             R, QP = e.max_prefills, e.max_chunk
@@ -387,8 +403,7 @@ class Engine:
                 # ONE varlen dispatch over the whole mixed stream
                 attn = msa_fused(
                     q, kp, vp, inp["bt"], inp["ctx"], pos, inp["seq_ids"],
-                    inp["valid"], q_start=inp["qstart"], q_len=inp["qlen"],
-                    worklist=worklist, tile_first=inp["tile_first"],
+                    inp["valid"], worklist=worklist, units=units,
                     window=self.windows[l], softcap=cfg.attn_logit_softcap,
                     q_tile=tq)
             else:
@@ -442,9 +457,12 @@ class Engine:
             fields["qstart"], fields["qlen"], fields["ctx"], fields["bt"],
             fields["positions"], page=self.ecfg.page_size, q_tile=tq,
             n_tiles=n_tiles, window=0)
-        fields["tile_first"] = tile_ranges(wl, n_tiles)
         w_b = max(WL_BUCKET, 1 << (wl["wl_seq"].shape[0] - 1).bit_length())
-        fields.update(pad_worklist(wl, w_b, sentinel_seq=self.n_seqs))
+        wl = pad_worklist(wl, w_b, sentinel_seq=self.n_seqs)
+        fields.update(wl)
+        fields.update(build_units(
+            wl, fields["qstart"], fields["qlen"], n_rows=t_b, q_tile=tq,
+            n_tiles=n_tiles, pad_to=unit_bucket(w_b, n_tiles)))
         layout, size = self.pack_layout(t_b, np_b, w_b)
         buf = np.zeros((size,), np.int32)
         views = {name: buf[off:off + size_] for name, off, size_ in layout}

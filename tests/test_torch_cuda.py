@@ -3,7 +3,11 @@ plain PyTorch versions on the same inputs, and the whole engine on the
 card against the same engine on the CPU, in the fused and the split
 layout.  The fused kernel runs over the shapes of the JAX package's
 kernel sweep (``tests/test_fused.py``: page 8, head_dim 16, q tiles
-4/8/16, GQA ratios, window, softcap, bucket slack); the prefill and
+4/8/16, GQA ratios, window, softcap, bucket slack), then with contexts
+up to 4096 keys, so that runs are cut into work units and merged (head
+dims 16-256, pages 8-64, GQA groups of 1-8 heads, a window whose first
+visible key lies in a later unit), each case launched twice for the
+same bits; the prefill and
 decode kernels over those of ``tests/test_kernels.py`` (GQA ratios, head
 dims 16-64, pages 8/16, window, softcap, ragged chunks, a ctx 1 row),
 then at head dims 64/128/256 and pages 8/16/32 with all-padding chunks
@@ -22,11 +26,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.msa import (WL_FIELDS, build_worklist, msa_decode,
+from repro_torch.kernels.msa import (UNIT_FIELDS, WL_FIELDS, build_units,
+                                     build_worklist, msa_decode,
                                      msa_decode_cuda, msa_fused,
                                      msa_fused_cuda, msa_prefill,
-                                     msa_prefill_cuda, pad_worklist,
-                                     tile_ranges)
+                                     msa_prefill_cuda, pad_worklist)
 from repro_torch.kernels.msa.ref import (msa_decode_ref, msa_fused_ref,
                                          msa_prefill_ref)
 
@@ -42,22 +46,12 @@ def dev():
     return torch.device("cuda")
 
 
-def _case(rng, *, n_pre, n_dec, page, NP, P, H, KH, D, slack, q_tile):
-    """Random mixed varlen step (numpy): multi-segment prefill runs, decode
-    rows, then ``slack`` padding rows; its work-list and tile ranges."""
-    runs, ctx = [], []
-    for _ in range(n_pre):
-        c = int(rng.integers(4, NP * page))
-        pos = np.unique(np.append(
-            rng.choice(c, size=int(rng.integers(1, min(14, c) + 1)),
-                       replace=False), c - 1))
-        runs.append(pos)
-        ctx.append(c)
-    for _ in range(n_dec):
-        c = int(rng.integers(1, NP * page))
-        runs.append(np.asarray([c - 1]))
-        ctx.append(c)
+def _step(rng, runs, ctx, *, page, P, H, KH, D, slack, q_tile, window=0):
+    """A varlen step (numpy) from per-sequence position runs and contexts,
+    then ``slack`` padding rows; block tables draw from a pool of P pages;
+    its work-list (built with ``window``) and work units (padded)."""
     n = len(runs)
+    NP = max(-(-int(c) // page) for c in ctx)
     q_len = np.asarray([len(r) for r in runs], np.int32)
     real = int(q_len.sum())
     T = real + slack
@@ -72,32 +66,60 @@ def _case(rng, *, n_pre, n_dec, page, NP, P, H, KH, D, slack, q_tile):
     tq = min(q_tile, T)
     n_tiles = -(-T // tq)
     wl, count = build_worklist(q_start, q_len, ctx, bt, q_pos, page=page,
-                               q_tile=tq, n_tiles=n_tiles, window=0)
-    tile_first = tile_ranges(wl, n_tiles)
+                               q_tile=tq, n_tiles=n_tiles, window=window)
     wl = pad_worklist(wl, 1 << count.bit_length(), sentinel_seq=n)
+    units = build_units(wl, q_start, q_len, n_rows=T, q_tile=tq,
+                        n_tiles=n_tiles, pad_to=2 * count + n_tiles)
     return dict(
         q=rng.standard_normal((T, H, D)).astype(np.float32),
         k=rng.standard_normal((P, page, KH, D)).astype(np.float32),
         v=rng.standard_normal((P, page, KH, D)).astype(np.float32),
         bt=bt, ctx=ctx, q_pos=q_pos, seq_ids=seq_ids, valid=valid,
-        q_start=q_start, q_len=q_len, wl=wl, tile_first=tile_first,
-        q_tile=tq, real=real)
+        wl=wl, units=units, q_tile=tq, real=real)
+
+
+def _case(rng, *, n_pre, n_dec, page, NP, P, H, KH, D, slack, q_tile,
+          max_run=14, min_ctx=1):
+    """Random mixed varlen step: multi-segment prefill runs (at most
+    ``max_run`` positions each, the last at ctx - 1), decode rows, then
+    ``slack`` padding rows; contexts of ``min_ctx`` to NP * page keys."""
+    runs, ctx = [], []
+    for _ in range(n_pre):
+        c = int(rng.integers(max(4, min_ctx), NP * page))
+        pos = np.unique(np.append(
+            rng.choice(c, size=int(rng.integers(1, min(max_run, c) + 1)),
+                       replace=False), c - 1))
+        runs.append(pos)
+        ctx.append(c)
+    for _ in range(n_dec):
+        c = int(rng.integers(min_ctx, NP * page))
+        runs.append(np.asarray([c - 1]))
+        ctx.append(c)
+    return _step(rng, runs, ctx, page=page, P=P, H=H, KH=KH, D=D,
+                 slack=slack, q_tile=q_tile)
 
 
 def _kernel_vs_plain(c, dtype, dev, *, window, softcap):
+    """Kernel vs plain version on the card: slack rows exact zeros, and
+    the same bits on a second launch."""
     t = {k: torch.from_numpy(np.asarray(c[k])).to(dev)
-         for k in ("bt", "ctx", "q_pos", "seq_ids", "valid", "q_start",
-                   "q_len", "tile_first")}
+         for k in ("bt", "ctx", "q_pos", "seq_ids", "valid")}
     q, kp, vp = (torch.from_numpy(c[k]).to(dev, dtype)
                  for k in ("q", "k", "v"))
     wl = tuple(torch.from_numpy(c["wl"][f]).to(dev) for f in WL_FIELDS)
+    units = tuple(torch.from_numpy(c["units"][f]).to(dev)
+                  for f in UNIT_FIELDS)
     before = msa_fused_cuda.launches
-    got = msa_fused(q, kp, vp, t["bt"], t["ctx"], t["q_pos"], t["seq_ids"],
-                    t["valid"], q_start=t["q_start"], q_len=t["q_len"],
-                    worklist=wl, tile_first=t["tile_first"],
-                    q_tile=c["q_tile"], window=window, softcap=softcap)
+
+    def kernel():
+        return msa_fused(q, kp, vp, t["bt"], t["ctx"], t["q_pos"],
+                         t["seq_ids"], t["valid"], worklist=wl, units=units,
+                         q_tile=c["q_tile"], window=window, softcap=softcap)
+
+    got, again = kernel(), kernel()
     torch.cuda.synchronize()
-    assert msa_fused_cuda.launches == before + 1
+    assert msa_fused_cuda.launches == before + 2
+    assert torch.equal(got, again), "two launches disagree"
     want = msa_fused_ref(q, kp, vp, t["bt"], t["ctx"], t["q_pos"],
                          t["seq_ids"], t["valid"], window=window,
                          softcap=softcap)
@@ -137,6 +159,74 @@ def test_kernel_head_dims_and_pages_on_card(dev, dtype, D, page, q_tile):
     c = _case(rng, n_pre=3, n_dec=12, page=page, NP=12, P=64, H=8, KH=2,
               D=D, slack=q_tile + 5, q_tile=q_tile)
     err = _kernel_vs_plain(c, dtype, dev, window=0, softcap=0.0)
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [16, 64, 80, 128, 256])
+@pytest.mark.parametrize("page", [8, 12, 16, 32, 64])
+def test_kernel_long_runs_head_dims_and_pages_on_card(dev, dtype, D, page):
+    """Contexts of 2049 to 4096 keys, so that every run is longer than a
+    unit (32 pages: 2048 keys at page 64) and is cut into several work
+    units and merged, at every head-dim class (16 and 80 padded in shared
+    memory), pages 8/16/32, a page that leaves stage slots empty (12) and
+    one longer than a stage (64); a softcap on the f32 cases."""
+    rng = np.random.default_rng(7 * D + page)
+    c = _case(rng, n_pre=2, n_dec=6, page=page, NP=4096 // page, P=96,
+              H=8, KH=2, D=D, slack=21, q_tile=16, max_run=40,
+              min_ctx=2049)
+    assert c["units"]["unit_counts"][1] > 0, "no run was cut"
+    softcap = 30.0 if dtype == torch.float32 else 0.0
+    err = _kernel_vs_plain(c, dtype, dev, window=0, softcap=softcap)
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("kind", ["decode_only", "mixed"])
+def test_kernel_long_contexts_and_gqa_groups_on_card(dev, dtype, G, kind):
+    """Llama-3.1-8B's head dim and page (128, 16) with contexts of 64 to
+    4096 keys: a decode-only step (16 rows) and a mixed one (two
+    multi-segment chunks of up to 80 rows and 8 decode rows), at GQA
+    groups of 1, 2, 4 and 8 heads (M rows of a unit: rows x G)."""
+    rng = np.random.default_rng(G * 10 + len(kind))
+    runs, ctx = [], []
+    if kind == "mixed":
+        for c in rng.integers(1024, 4097, 2):
+            c = int(c)
+            runs.append(np.concatenate([np.arange(100, 140),
+                                        np.arange(c - 40, c)]))
+            ctx.append(c)
+    for c in rng.integers(64, 4097, 16 if kind == "decode_only" else 8):
+        runs.append(np.asarray([c - 1]))
+        ctx.append(int(c))
+    c = _step(rng, runs, ctx, page=16, P=300, H=2 * G, KH=2, D=128,
+              slack=11, q_tile=16)
+    assert c["units"]["unit_counts"][1] > 0, "no run was cut"
+    err = _kernel_vs_plain(c, dtype, dev, window=0, softcap=0.0)
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("wl_window", [0, 64], ids=["full_wl", "window_wl"])
+def test_kernel_first_visible_key_in_a_later_unit_on_card(dev, dtype,
+                                                          wl_window):
+    """A window of 64 and a chunk with a gap: the rows at 3000-3010 see
+    only keys 2937-3010, so every unit before the last of their run is
+    masked for them (m stays NEG_INF, l 0, and the merge must not turn
+    that into garbage); the rows at 5-8 see keys 0-8 only, so the later
+    units are masked for them.  The work-list is built without the window
+    (as the serving engine builds it) and with it."""
+    rng = np.random.default_rng(11)
+    runs = [np.concatenate([np.arange(5, 9), np.arange(3000, 3011)]),
+            np.asarray([2047]), np.asarray([40])]
+    c = _step(rng, runs, [3011, 2048, 41], page=16, P=200, H=8, KH=2,
+              D=128, slack=9, q_tile=16, window=wl_window)
+    assert c["units"]["unit_counts"][1] > 0, "no run was cut"
+    err = _kernel_vs_plain(c, dtype, dev, window=64, softcap=0.0)
     assert err <= TOL[dtype], err
 
 

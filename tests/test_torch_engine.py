@@ -18,10 +18,11 @@ from repro.serving.engine import pack_layout_for as j_pack_layout_for
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_smoke_config, scaled_config
 from repro_torch.core.offload import OffloadConfig
-from repro_torch.kernels.msa import WL_FIELDS, pad_worklist, tile_ranges
+from repro_torch.kernels.msa import (UNIT_FIELDS, WL_FIELDS, build_units,
+                                     pad_worklist)
 from repro_torch.models import init_params
 from repro_torch.serving.engine import (derive_bucket_lattice,
-                                        pack_layout_for)
+                                        pack_layout_for, unit_bucket)
 
 NB = 44
 
@@ -88,7 +89,11 @@ def test_bucket_lattice_and_pack_layout_match_jax(kw):
                 continue
             sizes = {name: size for name, _, size in got}
             tq = min(tcfg.q_tile, t_b)
-            assert sizes.pop("tile_first") == -(-t_b // tq) + 1
+            u_b = unit_bucket(64, -(-t_b // tq))
+            for f in UNIT_FIELDS:     # the port's work units
+                assert sizes.pop(f) == (2 if f == "unit_counts" else
+                                        u_b // 2 if f.startswith("mg_")
+                                        else u_b)
             assert sizes == {name: size for name, _, size in want}
 
 
@@ -123,11 +128,14 @@ def test_fixed_step_plan_through_both_engines(small):
         jf["qstart"], jf["qlen"], jf["ctx"], jf["bt"], jf["positions"],
         page=16, q_tile=tq, n_tiles=-(-t_b // tq), window=0)
     assert w_b == max(64, 1 << (n_items - 1).bit_length())
-    np.testing.assert_array_equal(got["tile_first"].numpy(),
-                                  tile_ranges(wl, -(-t_b // tq)))
     wl = pad_worklist(wl, w_b, sentinel_seq=teng.n_seqs)
     for f in WL_FIELDS:
         np.testing.assert_array_equal(got[f].numpy(), wl[f], err_msg=f)
+    n_tiles = -(-t_b // tq)
+    units = build_units(wl, jf["qstart"], jf["qlen"], n_rows=t_b, q_tile=tq,
+                        n_tiles=n_tiles, pad_to=unit_bucket(w_b, n_tiles))
+    for f in UNIT_FIELDS:
+        np.testing.assert_array_equal(got[f].numpy(), units[f], err_msg=f)
 
     jh = jeng.execute(plan)
     with torch.no_grad():

@@ -1,8 +1,10 @@
 """Port vs reference for the kernel modules: the plain PyTorch fused,
 prefill and decode MSA against the JAX oracles and the JAX Pallas kernels
 (interpret mode), the MSA contract (Eq. 2) on the port's plain prefill,
-the host work-list item for item, the per-tile item ranges the fused CUDA
-kernel walks, the page ops, the serving layers, and the weight bridge.
+the host work-list item for item, the work units the fused CUDA kernel
+runs (their partition of the work-list, and their cut-and-merge
+arithmetic against the plain version), the page ops, the serving layers,
+and the weight bridge.
 
 Tolerances are those of ``tests/test_kernels.py``: 1e-5 at float32, 2e-2
 at bfloat16 (the two frameworks round bf16 at different places).  Inputs
@@ -26,12 +28,14 @@ from repro.kernels.msa import (WL_FIELDS as JWL_FIELDS,
                                msa_prefill as j_msa_prefill,
                                write_kv_pages as j_write_kv_pages)
 from repro.models import layers as jlayers
-from repro_torch.kernels.msa import (WL_FIELDS, apply_page_copies,
-                                     apply_swap_ins, build_worklist,
+from repro_torch.kernels.msa import (UNIT_FIELDS, WL_FIELDS,
+                                     apply_page_copies, apply_swap_ins,
+                                     build_units, build_worklist,
                                      msa_decode, msa_decode_cuda, msa_fused,
                                      msa_fused_cuda, msa_prefill,
                                      msa_prefill_cuda, pad_worklist,
                                      tile_ranges, write_kv_pages)
+from repro_torch.kernels.msa.msa_fused import RUN_UNITS, UNIT_PAGES
 from repro_torch.kernels.msa.ref import NEG_INF
 from repro_torch.models import layers as tlayers
 
@@ -413,67 +417,221 @@ def test_tile_ranges_rejects_a_broken_worklist():
         tile_ranges(wl, n_tiles + 1)
 
 
-def _tile_walk(c, wl, tile_first, *, page, q_tile, window, softcap):
-    """The CUDA kernel's algorithm written out in numpy: one program per
-    (q tile, q head) walks [tile_first[t], tile_first[t+1]), each item
-    touching only its own sequence's rows, with f32 online softmax, and
-    writes the whole tile at the end.  Holds the kernel's walk (not its
-    arithmetic order) against the plain version on the CPU."""
+def _unit_walk(c, wl, units, *, page, window, softcap):
+    """The CUDA kernel's algorithm written out in numpy: each work unit,
+    for each kv head, runs the unit's rows times the group's G heads
+    through its keys in stages of 32 key slots with f32 online softmax
+    (a masked key's p set to 0), and writes the output (a run that was
+    not cut), partial k of its rows (the k-th unit of a cut run), or
+    exact zeros (a unit of no item); then each cut run's partials are
+    merged in unit order.  Holds the decomposition and the cut-and-merge
+    arithmetic (not the kernel's summation order) against the plain
+    version on the CPU.  Rows nothing writes stay NaN."""
     T, H, D = c["q"].shape
     KH = c["k_pages"].shape[2]
-    out = np.empty_like(c["q"])
-    n = c["n"]
-    for t in range(len(tile_first) - 1):
-        r0 = t * q_tile
-        for h in range(H):
-            g = h // (H // KH)
-            acc = np.zeros((q_tile, D), np.float32)
-            m = np.full((q_tile,), NEG_INF, np.float32)
-            l = np.zeros((q_tile,), np.float32)
-            for w in range(tile_first[t], tile_first[t + 1]):
-                s = wl["wl_seq"][w]
-                if s >= n:
-                    continue
-                lo = max(c["q_start"][s], r0)
-                hi = min(c["q_start"][s] + c["q_len"][s], r0 + q_tile, T)
-                kv = wl["wl_kvbase"][w] + np.arange(page)
-                k = c["k_pages"][wl["wl_slot"][w], :, g]
-                v = c["v_pages"][wl["wl_slot"][w], :, g]
-                for r in range(lo, hi):
-                    qp = c["q_pos"][r]
-                    ok = (kv <= qp) & (kv < c["ctx"][s])
-                    if window > 0:
-                        ok &= qp - kv < window
-                    sc = k @ (c["q"][r, h] / math.sqrt(D))
-                    if softcap > 0:
-                        sc = softcap * np.tanh(sc / softcap)
-                    sc = np.where(ok, sc, NEG_INF)
-                    rr = r - r0
-                    m_new = max(m[rr], sc.max())
-                    p = np.where(ok, np.exp(sc - m_new), 0.0)
-                    alpha = np.exp(m[rr] - m_new)
-                    l[rr] = l[rr] * alpha + p.sum()
-                    acc[rr] = acc[rr] * alpha + p @ v
-                    m[rr] = m_new
-            rows = min(q_tile, T - r0)
-            out[r0:r0 + rows, h] = (acc / np.maximum(l, 1e-30)[:, None])[:rows]
+    G = H // KH
+    out = np.full((T, H, D), np.nan, np.float32)
+    part_o = np.zeros((RUN_UNITS, T, H, D), np.float32)
+    part_m = np.zeros((RUN_UNITS, T, H), np.float32)
+    part_l = np.zeros((RUN_UNITS, T, H), np.float32)
+    stage = max(1, 32 // page) * page if page <= 32 else 32
+    n_units, n_merges = units["unit_counts"]
+    for u in range(n_units):
+        r0, nr = units["u_row0"][u], units["u_rows"][u]
+        it0, items = units["u_item0"][u], units["u_items"][u]
+        rows = slice(r0, r0 + nr)
+        if items == 0:
+            out[rows] = 0.0
+            continue
+        slots = wl["wl_slot"][it0:it0 + items]
+        kv = (wl["wl_kvbase"][it0:it0 + items, None]
+              + np.arange(page)).reshape(-1)
+        qp = c["q_pos"][rows]
+        vis = (kv[None] <= qp[:, None]) & (kv[None] < c["ctx"][
+            units["u_seq"][u]])
+        if window > 0:
+            vis &= qp[:, None] - kv[None] < window
+        for g in range(KH):
+            heads = slice(g * G, (g + 1) * G)
+            k = c["k_pages"][slots, :, g].reshape(-1, D)
+            v = c["v_pages"][slots, :, g].reshape(-1, D)
+            sc = np.einsum("rhd,kd->rhk",
+                           c["q"][rows, heads] / np.float32(math.sqrt(D)),
+                           k).astype(np.float32)
+            if softcap > 0:
+                sc = np.float32(softcap) * np.tanh(sc / np.float32(softcap))
+            m = np.full((nr, G), NEG_INF, np.float32)
+            l = np.zeros((nr, G), np.float32)
+            acc = np.zeros((nr, G, D), np.float32)
+            for k0 in range(0, kv.shape[0], stage):
+                ks = slice(k0, k0 + stage)
+                ok = vis[:, None, ks]
+                s_ = np.where(ok, sc[:, :, ks], np.float32(NEG_INF))
+                m_new = np.maximum(m, s_.max(-1))
+                alpha = np.exp(m - m_new)
+                p = np.where(ok, np.exp(s_ - m_new[..., None]), 0.0)
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + p @ v[ks]
+                m = m_new
+            part = units["u_part"][u]
+            if part < 0:
+                out[rows, heads] = acc / np.maximum(l, 1e-30)[..., None]
+            else:
+                part_o[part, rows, heads] = acc
+                part_m[part, rows, heads] = m
+                part_l[part, rows, heads] = l
+    for j in range(n_merges):
+        r0, nr, nu = (units[f][j] for f in ("mg_row0", "mg_rows",
+                                            "mg_units"))
+        rows = slice(r0, r0 + nr)
+        m = part_m[:nu, rows].max(0)
+        w = np.exp(part_m[:nu, rows] - m)
+        l = (part_l[:nu, rows] * w).sum(0)
+        o = (part_o[:nu, rows] * w[..., None]).sum(0)
+        out[rows] = o / np.maximum(l, 1e-30)[..., None]
     return out
 
 
-@pytest.mark.parametrize("seed,window,softcap,q_tile",
-                         [(0, 0, 0.0, 4), (1, 9, 0.0, 8), (2, 0, 20.0, 16)])
-def test_kernel_tile_walk_matches_plain(seed, window, softcap, q_tile):
-    rng = np.random.RandomState(200 + seed)
-    c = _varlen_case(rng, n_pre=2, n_dec=3, page=8, NP=5, P=24, H=4, KH=2,
-                     D=16)
-    c = _pad_stream(c, c["T"] + q_tile + 1)
-    wl, tq, n_tiles = _worklist(c, page=8, q_tile=q_tile)
+def _long_case(rng, *, window=0, page=8, slack=5, q_tile=8):
+    """A varlen step whose runs are long enough to be cut into several
+    work units (contexts up to ~2.4k keys at page 8), padded with slack
+    rows, with its work-list and units."""
+    c = _varlen_case(rng, n_pre=2, n_dec=4, page=page, NP=300, P=400,
+                     H=4, KH=2, D=16, max_run=20)
+    c = _pad_stream(c, c["T"] + slack)
+    wl, tq, n_tiles = _worklist(c, page=page, q_tile=q_tile)
+    if window:
+        wl, _ = build_worklist(c["q_start"], c["q_len"], c["ctx"], c["bt"],
+                               c["q_pos"], page=page, q_tile=tq,
+                               n_tiles=n_tiles, window=window)
     wl = pad_worklist(wl, 1 << wl["wl_seq"].shape[0].bit_length(),
                       sentinel_seq=c["n"])
-    got = _tile_walk(c, wl, tile_ranges(wl, n_tiles), page=8, q_tile=tq,
-                     window=window, softcap=softcap)
+    units = build_units(wl, c["q_start"], c["q_len"], n_rows=c["T"],
+                        q_tile=tq, n_tiles=n_tiles)
+    return c, wl, units, tq, n_tiles
+
+
+@pytest.mark.parametrize("seed,window,softcap,q_tile",
+                         [(0, 0, 0.0, 4), (1, 9, 0.0, 8), (2, 0, 20.0, 16),
+                          (3, 300, 0.0, 8), (4, 0, 0.0, 16)])
+def test_kernel_tile_walk_matches_plain(seed, window, softcap, q_tile):
+    rng = np.random.RandomState(200 + seed)
+    if seed < 3:        # short runs: one unit a run, as before
+        c = _varlen_case(rng, n_pre=2, n_dec=3, page=8, NP=5, P=24, H=4,
+                         KH=2, D=16)
+        c = _pad_stream(c, c["T"] + q_tile + 1)
+        wl, tq, n_tiles = _worklist(c, page=8, q_tile=q_tile)
+        wl = pad_worklist(wl, 1 << wl["wl_seq"].shape[0].bit_length(),
+                          sentinel_seq=c["n"])
+        units = build_units(wl, c["q_start"], c["q_len"], n_rows=c["T"],
+                            q_tile=tq, n_tiles=n_tiles)
+    else:               # long runs, cut into several units and merged
+        c, wl, units, tq, _ = _long_case(rng, window=window, q_tile=q_tile,
+                                         slack=q_tile + 3)
+        assert units["unit_counts"][1] > 0, "no run was cut"
+    got = _unit_walk(c, wl, units, page=8, window=window, softcap=softcap)
     want = _port_plain(c, torch.float32, window, softcap)
+    assert not np.isnan(got).any(), "a row was never written"
+    assert np.all(got[~c["valid"]] == 0), "slack rows not exact zeros"
     assert np.max(np.abs(got - want)) < 1e-5
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("q_tile,window,page", [(4, 0, 8), (8, 300, 8),
+                                                (16, 0, 16), (8, 0, 32),
+                                                (16, 0, 12), (8, 0, 64)])
+def test_work_units_partition_the_worklist(seed, q_tile, window, page):
+    """Every real item lies in exactly one unit; a unit holds items of one
+    (q tile, sequence) run and at most UNIT_PAGES pages (a run of more
+    than RUN_UNITS * UNIT_PAGES pages: its pages shared evenly); every
+    stream row is written by exactly one run or one zero unit; each cut
+    run has one merge; units come in a fixed order; padding units and
+    merges have no row."""
+    rng = np.random.RandomState(300 + seed)
+    c, wl, units, tq, n_tiles = _long_case(rng, window=window, page=page,
+                                           q_tile=q_tile,
+                                           slack=2 * q_tile + 1)
+    n_units, n_merges = units["unit_counts"]
+    assert set(units) == set(UNIT_FIELDS)
+    real = np.flatnonzero(wl["wl_seq"] < c["n"])
+    seen = np.zeros(wl["wl_seq"].shape[0], np.int64)
+    run_units, written = {}, np.zeros(c["T"], np.int64)
+    for u in range(n_units):
+        a, n = units["u_item0"][u], units["u_items"][u]
+        r0, nr = units["u_row0"][u], units["u_rows"][u]
+        assert 0 < nr <= tq and r0 // tq == (r0 + nr - 1) // tq
+        seen[a:a + n] += 1
+        if n == 0:                          # rows no item covers
+            assert units["u_part"][u] == -1
+            written[r0:r0 + nr] += 1
+            continue
+        s = units["u_seq"][u]
+        assert np.all(wl["wl_seq"][a:a + n] == s)
+        assert np.all(wl["wl_qtile"][a:a + n] == r0 // tq)
+        lo, hi = c["q_start"][s], c["q_start"][s] + c["q_len"][s]
+        assert lo <= r0 and r0 + nr <= hi
+        run_units.setdefault((r0, nr), []).append(u)
+    assert np.array_equal(np.flatnonzero(seen), real)
+    assert np.all(seen[real] == 1)
+    merges = {(units["mg_row0"][j], units["mg_rows"][j]):
+              units["mg_units"][j] for j in range(n_merges)}
+    for (r0, nr), us in run_units.items():
+        pages = units["u_items"][us].sum()
+        limit = max(UNIT_PAGES, -(-pages // RUN_UNITS))
+        assert units["u_items"][us].max() <= limit
+        assert len(us) == min(RUN_UNITS, -(-pages // UNIT_PAGES))
+        written[r0:r0 + nr] += 1
+        if len(us) == 1:
+            assert units["u_part"][us[0]] == -1
+        else:
+            assert list(units["u_part"][us]) == list(range(len(us)))
+            assert merges.pop((r0, nr)) == len(us)
+    assert not merges
+    assert np.all(written == 1)
+    # the order: units of runs by first item, then zero units by row
+    items = units["u_items"][:n_units]
+    key = np.where(items > 0, units["u_item0"][:n_units], -1)
+    assert np.all(np.diff(key[items > 0]) > 0)
+    z = np.flatnonzero(items == 0)
+    assert np.all(z >= np.count_nonzero(items)) \
+        and np.all(np.diff(units["u_row0"][z]) > 0)
+    # a second build gives the same units, and padding only appends
+    w = int(n_units) + 5
+    padded = build_units(wl, c["q_start"], c["q_len"], n_rows=c["T"],
+                         q_tile=tq, n_tiles=n_tiles, pad_to=w)
+    for f in UNIT_FIELDS[:6]:
+        assert padded[f].shape == (w,)
+        np.testing.assert_array_equal(padded[f][:n_units], units[f])
+    assert np.all(padded["u_rows"][n_units:] == 0)
+    for f in UNIT_FIELDS[6:9]:
+        assert padded[f].shape == (w // 2,)
+        np.testing.assert_array_equal(padded[f][:n_merges], units[f])
+    assert np.all(padded["mg_units"][n_merges:] == 0)
+    np.testing.assert_array_equal(padded["unit_counts"],
+                                  units["unit_counts"])
+    with pytest.raises(ValueError):
+        build_units(wl, c["q_start"], c["q_len"], n_rows=c["T"], q_tile=tq,
+                    n_tiles=n_tiles, pad_to=int(n_units) - 1)
+
+
+def test_work_units_of_all_padding_tiles_read_no_page():
+    """A step of 5 real rows in a 64-row bucket: the all-padding tiles
+    (one sentinel item each in the work-list) become units of no item."""
+    rng = np.random.RandomState(9)
+    c = _varlen_case(rng, n_pre=1, n_dec=2, page=8, NP=6, P=24, H=4, KH=2,
+                     D=16, max_run=3)
+    c = _pad_stream(c, 64)
+    wl, tq, n_tiles = _worklist(c, page=8, q_tile=16)
+    units = build_units(wl, c["q_start"], c["q_len"], n_rows=64, q_tile=tq,
+                        n_tiles=n_tiles)
+    n_units = units["unit_counts"][0]
+    for u in range(n_units):
+        if units["u_row0"][u] >= 16:
+            assert units["u_items"][u] == 0
+    tiles = {units["u_row0"][u] // 16 for u in range(n_units)}
+    assert tiles == {0, 1, 2, 3}
+    got = _unit_walk(c, wl, units, page=8, window=0, softcap=0.0)
+    assert np.all(got[c["valid"].sum():] == 0)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -483,8 +641,7 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     i32 = torch.zeros((1,), dtype=torch.int32)
     bt = torch.zeros((1, 2), dtype=torch.int32)
     with pytest.raises(ValueError):
-        msa_fused_cuda(q, pages, pages, i32, i32, i32, i32, (i32,) * 6,
-                       i32)
+        msa_fused_cuda(q, pages, pages, i32, i32, (i32,) * 6, (i32,) * 10)
     with pytest.raises(ValueError):
         msa_fused(q.to("meta"), pages, pages, None, None, None, None, None)
     with pytest.raises(ValueError):
