@@ -19,11 +19,13 @@ Phases:
        launched twice and must give the same bits;
      - prefill: R 4 chunks of QP 128 (one with two gaps, one ragged, one
        empty, one full) with contexts up to 4k, and small cases with a
-       window, a softcap and an all-padding step; the main case again at
-       q tiles of 4, 8, 16 and 32 rows (the same bits, and each timed);
+       window, a softcap and an all-padding step;
      - decode: B 64 rows, 32 with contexts up to 4k and 32 padding rows
        (ctx 1), and small window and softcap cases; and the decode
-       kernel on the fused decode-only step's 32 rows.
+       kernel on the fused decode-only step's 32 rows;
+     - both split kernels' main cases again at pieces of 8 to 128 pages
+       (each timed and held to the plain version); every split case is
+       launched twice and must give the same bits.
      Kernel and plain version are timed with CUDA events (median of 20),
      each call queued behind a device sleep so that the events time the
      device alone, beside the bound; the kernels are timed once more from
@@ -41,9 +43,11 @@ Phases:
      schedule does not depend on the step times, and hold split to fused:
      the same steps, evictions, recomputed tokens and multi-segment
      chunks, equal first sampled ids, first logits within tolerance.
-  4. Profile a short serving run (``torch.profiler``): device time by
-     kernel, the share of the kernels ``msa_fused`` launches (the kernel
-     and its merge), their device ms a call, the device's idle share.
+  4. Profile a short serving run (``torch.profiler``) in each layout:
+     device time by kernel, the share of the kernels each attention call
+     launches (the kernel and its merge: ``msa_fused``; ``msa_prefill``
+     and ``msa_decode``), their device ms a call, the device's idle share,
+     and in the split layout how many prefill launches had no valid row.
      Phases 3 and 3b also print the mean host seconds a step spends
      assembling its inputs (``StepHandle.assembly_time``).
 
@@ -190,7 +194,9 @@ def _bound(nbytes, flops, dtype_name):
             "bytes": nbytes}
 
 
-def _run_case(case, dtype_name, *, time_it=False):
+def _fused_fns(case, dtype_name):
+    """The fused kernel and its plain version on the case's tensors, moved
+    to the card in ``dtype_name``, as two closures."""
     import torch
     from repro_torch.kernels.msa import UNIT_FIELDS, WL_FIELDS, msa_fused
     from repro_torch.kernels.msa.ref import msa_fused_ref
@@ -216,6 +222,12 @@ def _run_case(case, dtype_name, *, time_it=False):
         return msa_fused_ref(q, kp, vp, f["bt"], f["ctx"], f["q_pos"],
                              f["seq_ids"], f["valid"], **kw)
 
+    return kernel, plain
+
+
+def _run_case(case, dtype_name, *, time_it=False):
+    import torch
+    kernel, plain = _fused_fns(case, dtype_name)
     got, again = kernel(), kernel()
     torch.cuda.synchronize()
     want = plain()
@@ -230,17 +242,19 @@ def _run_case(case, dtype_name, *, time_it=False):
         out["ms"] = _median_ms(kernel)
         out["ms_with_enqueue"] = _median_ms(kernel, device_only=False)
         out["plain_ms"] = _median_ms(plain)
-        itemsize = q.element_size()
-        H, D = q.shape[1], q.shape[2]
-        _, page, KH, _ = kp.shape
+        itemsize = got.element_size()
+        T, H, D = got.shape
+        _, page, KH, _ = case["k"].shape
         nbytes = (2 * case["pages_read"] * page * KH * D * itemsize
-                  + 2 * q.shape[0] * H * D * itemsize)
+                  + 2 * T * H * D * itemsize)
         out.update(_bound(nbytes, case["flops"], dtype_name))
     del got, want
     return out
 
 
-def kernel_phase():
+def fused_cases():
+    """Phase 2's fused cases, from seed 0: the mixed step, the decode-only
+    step and the small cases (a dict)."""
     from repro_torch.serving import EngineConfig
     rng = np.random.default_rng(0)
     llama = dict(H=32, KH=8, D=128, page=16)
@@ -269,6 +283,11 @@ def kernel_phase():
             rng, **llama, q_tile=32, t_bucket=128,
             prefills=[(40, [(37, 40)])], decode_ctx=[17, 333]),
     }
+    return main, decode, small
+
+
+def kernel_phase():
+    main, decode, small = fused_cases()
     results = {}
     for dtype_name in ("bfloat16", "float32"):
         results[("main", dtype_name)] = _run_case(main, dtype_name,
@@ -371,14 +390,16 @@ def _decode_case(rng, *, H, KH, D, page, ctx_active, n_pad, window=0,
         flops=4.0 * keys * H * D, rows_in=B, rows_out=B)
 
 
-def _run_split_case(kind, case, dtype_name, *, time_it=False):
+def _split_fns(kind, case, dtype_name):
+    """The ``kind`` ("prefill" or "decode") kernel and its plain version on
+    the case's tensors, moved to the card in ``dtype_name``: two closures
+    and the tensors."""
     import torch
     from repro_torch.kernels.msa import msa_decode, msa_prefill
     from repro_torch.kernels.msa.ref import msa_decode_ref, msa_prefill_ref
     dt = getattr(torch, dtype_name)
-    dev = torch.device("cuda")
-    args = [torch.from_numpy(a).to(dev, dt) if a.dtype == np.float32
-            else torch.from_numpy(a).to(dev) for a in case["args"]]
+    args = [torch.from_numpy(a).to("cuda", dt) if a.dtype == np.float32
+            else torch.from_numpy(a).to("cuda") for a in case["args"]]
     kw = dict(window=case["window"], softcap=case["softcap"])
     kernel_fn, plain_fn = ((msa_prefill, msa_prefill_ref) if kind == "prefill"
                            else (msa_decode, msa_decode_ref))
@@ -389,11 +410,19 @@ def _run_split_case(kind, case, dtype_name, *, time_it=False):
     def plain():
         return plain_fn(*args, **kw)
 
-    got = kernel()
+    return kernel, plain, args
+
+
+def _run_split_case(kind, case, dtype_name, *, time_it=False):
+    import torch
+    dev = torch.device("cuda")
+    kernel, plain, args = _split_fns(kind, case, dtype_name)
+    got, again = kernel(), kernel()
     torch.cuda.synchronize()
     want = plain()
     out = {"max_abs_err": float((got.float() - want.float()).abs().max()),
-           "finite": bool(torch.isfinite(got).all()), "padding_zero": True}
+           "finite": bool(torch.isfinite(got).all()), "padding_zero": True,
+           "same_bits_twice": bool(torch.equal(got, again))}
     if kind == "prefill":
         q_lens = args[6]
         pad = (torch.arange(got.shape[1], device=dev)[None, :]
@@ -415,10 +444,9 @@ def _run_split_case(kind, case, dtype_name, *, time_it=False):
     return out
 
 
-def split_kernel_phase(fused_results, fused_decode):
-    """The prefill and decode kernels against their plain versions, and
-    the decode kernel on the fused kernel's decode-only step."""
-    import torch
+def split_cases():
+    """Phase 2's split cases, from seed 1: the prefill and decode main
+    cases and the small cases (a dict keyed by (kernel, case))."""
     rng = np.random.default_rng(1)
     llama = dict(H=32, KH=8, D=128, page=16)
     main_prefill = _prefill_case(rng, **llama, QP=128, chunks=[
@@ -447,6 +475,24 @@ def split_kernel_phase(fused_results, fused_decode):
             rng, **llama, softcap=30.0,
             ctx_active=rng.integers(1, 2000, size=12), n_pad=4),
     }
+    return main_prefill, main_decode, small
+
+
+def _decode_only_as_split(fused_decode):
+    """The fused kernel's decode-only step (32 rows) as a decode case."""
+    n = len(fused_decode["ctx"])
+    return dict(
+        args=(fused_decode["q"][:n], fused_decode["k"], fused_decode["v"],
+              fused_decode["bt"], fused_decode["ctx"]),
+        window=0, softcap=0.0, pages_read=fused_decode["pages_read"],
+        flops=fused_decode["flops"], rows_in=n, rows_out=n)
+
+
+def split_kernel_phase(fused_results, fused_decode):
+    """The prefill and decode kernels against their plain versions, and
+    the decode kernel on the fused kernel's decode-only step."""
+    import torch
+    main_prefill, main_decode, small = split_cases()
     results = {}
     for dtype_name in ("bfloat16", "float32"):
         results[("prefill", "main", dtype_name)] = _run_split_case(
@@ -462,37 +508,35 @@ def split_kernel_phase(fused_results, fused_decode):
                 "tol": tol, **res}
         print("kernel_check " + json.dumps(line), flush=True)
         if not (res["finite"] and res["padding_zero"]
-                and res["max_abs_err"] <= tol):
+                and res["same_bits_twice"] and res["max_abs_err"] <= tol):
             raise AssertionError(f"msa_{kind} kernel disagrees: {line}")
 
-    # the prefill kernel's q tile (rows a block serves): the same bits in
-    # every tile, and the time of each (the wrapper's default is one)
-    from repro_torch.kernels.msa import msa_prefill_cuda
-    args = [torch.from_numpy(a).to("cuda", torch.bfloat16)
-            if a.dtype == np.float32 else torch.from_numpy(a).to("cuda")
-            for a in main_prefill["args"]]
-    want = msa_prefill_cuda(*args)
-    for q_tile in (4, 8, 16, 32):
-        same = bool(torch.equal(msa_prefill_cuda(*args, q_tile=q_tile),
-                                want))
-        ms = _median_ms(lambda: msa_prefill_cuda(*args, q_tile=q_tile))
-        print("prefill_tile_sweep " + json.dumps(
-            {"dtype": "bfloat16", "q_tile": q_tile, "ms": ms,
-             "same_bits_as_default": same}), flush=True)
-        if not same:
-            raise AssertionError(f"msa_prefill depends on the q tile "
-                                 f"({q_tile})")
-    del args, want
+    # the split kernels' free parameter, the pages of a piece of a long
+    # range (the wrappers' default is 32): each setting timed and held to
+    # the plain version (a setting changes the order of the sums, so the
+    # bits may differ between settings)
+    from repro_torch.kernels.msa import msa_decode_cuda, msa_prefill_cuda
+    for kind, case, fn in (("prefill", main_prefill, msa_prefill_cuda),
+                           ("decode", main_decode, msa_decode_cuda)):
+        _, plain, args = _split_fns(kind, case, "bfloat16")
+        want = plain().float()
+        for piece_pages in (8, 16, 32, 64, 128):
+            got = fn(*args, piece_pages=piece_pages)
+            err = float((got.float() - want).abs().max())
+            ms = _median_ms(lambda: fn(*args, piece_pages=piece_pages))
+            print("piece_sweep " + json.dumps(
+                {"kernel": f"msa_{kind}", "dtype": "bfloat16",
+                 "piece_pages": piece_pages, "ms": ms, "max_abs_err": err,
+                 "tol": KERNEL_TOL["bfloat16"]}), flush=True)
+            if not err <= KERNEL_TOL["bfloat16"]:
+                raise AssertionError(f"msa_{kind} disagrees at piece_pages "
+                                     f"{piece_pages}: {err}")
+        del args, want, got
 
     # the fused kernel's decode-only step (32 rows) through the decode
     # kernel: one page read per GQA group against the fused kernel's walk
     # of each head on its own
-    n = len(fused_decode["ctx"])
-    same_step = dict(
-        args=(fused_decode["q"][:n], fused_decode["k"], fused_decode["v"],
-              fused_decode["bt"], fused_decode["ctx"]),
-        window=0, softcap=0.0, pages_read=fused_decode["pages_read"],
-        flops=fused_decode["flops"], rows_in=n, rows_out=n)
+    same_step = _decode_only_as_split(fused_decode)
     for dtype_name in ("bfloat16", "float32"):
         dec = _run_split_case("decode", same_step, dtype_name, time_it=True)
         fused = fused_results[("decode", dtype_name)]
@@ -728,48 +772,62 @@ def split_serve_phase(fused):
 # phase 4: where a serving run's device time goes
 # ---------------------------------------------------------------------------
 
-def profile_phase(make_server, make_workload):
+def profile_phase(make_server, make_workload, mode="fused"):
     """torch.profiler (CPU and CUDA activity) over a short serving run of
-    two requests: device time by kernel, the attention's share (every
-    kernel one ``msa_fused`` call launches: the kernel and its merge), its
-    mean device time a call, and the device's idle share of the run's wall
-    time (the profiler's own host cost included, so the idle share is an
-    upper bound)."""
+    two requests in the ``mode`` layout: device time by kernel, the share
+    of each attention kernel (every kernel one wrapper call launches: the
+    kernel and its merge), its mean device time a call, and the device's
+    idle share of the run's wall time (the profiler's own host cost
+    included, so the idle share is an upper bound).  In the split layout,
+    also how many prefill launches had no valid row (the steps with no
+    prefill chunk launch it over padding rows only)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels.msa import msa_fused_cuda
-    srv = make_server()
+    srv = make_server(mode)
     wl = make_workload(seed=2)[:2]
+    names = (("msa_fused",) if mode == "fused"
+             else ("msa_prefill", "msa_decode"))
+    counters = _kernel_counts()
+    dispatch, no_prefill = srv.engine.dispatch, []
+
+    def counting_dispatch(plan):
+        no_prefill.append(not plan.prefills)
+        return dispatch(plan)
+
+    srv.engine.dispatch = counting_dispatch
     torch.cuda.synchronize()
-    calls0 = msa_fused_cuda.launches
+    calls0 = {n: counters[n].launches for n in names}
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         res = srv.run(wl)
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
-    calls = msa_fused_cuda.launches - calls0
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if not kernels:
-        print("profile: the profiler recorded no device time "
+        print(f"profile ({mode}): the profiler recorded no device time "
               "(not measured)", flush=True)
         return
-    msa_us = sum(e.self_device_time_total for e in kernels
-                 if "msa_fused" in e.key)
-    print("profile: " + json.dumps({
-        "steps": res["steps"], "wall_ms": wall_us / 1e3,
-        "device_busy_ms": busy_us / 1e3,
-        "device_idle_share": 1.0 - busy_us / wall_us,
-        "msa_fused_share_of_busy": msa_us / busy_us,
-        "msa_fused_calls": calls,
-        "msa_fused_device_ms_per_call": msa_us / 1e3 / max(calls, 1),
-        "device_ms_per_step": busy_us / 1e3 / res["steps"]}), flush=True)
+    line = {"layout": mode, "steps": res["steps"], "wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / wall_us,
+            "device_ms_per_step": busy_us / 1e3 / res["steps"]}
+    for n in names:
+        us = sum(e.self_device_time_total for e in kernels if n in e.key)
+        calls = counters[n].launches - calls0[n]
+        line[f"{n}_share_of_busy"] = us / busy_us
+        line[f"{n}_calls"] = calls
+        line[f"{n}_device_ms_per_call"] = us / 1e3 / max(calls, 1)
+    if mode == "split":
+        line["prefill_launches_without_valid_row"] = (
+            sum(no_prefill) * srv.engine.cfg.n_layers)
+    print("profile: " + json.dumps(line), flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print("profile_kernel " + json.dumps({
-            "name": e.key[:90], "calls": e.count,
+            "layout": mode, "name": e.key[:90], "calls": e.count,
             "device_ms": e.self_device_time_total / 1e3,
             "share_of_busy": e.self_device_time_total / busy_us}),
             flush=True)
@@ -811,7 +869,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     fused = serve_phase()
     split_launches = split_serve_phase(fused)
-    profile_phase(fused["make_server"], fused["make_workload"])
+    for mode in ("fused", "split"):
+        profile_phase(fused["make_server"], fused["make_workload"], mode)
 
     fused_main = fused_results[("main", "bfloat16")]
     src = "src/repro_torch/kernels/msa/csrc/"

@@ -1,5 +1,6 @@
 """Build, loading and argument checks shared by the hand-written CUDA
-kernels of ``csrc/`` (``msa_fused``, ``msa_prefill``, ``msa_decode``).
+kernels of ``csrc/`` (``msa_fused``, ``msa_prefill``, ``msa_decode``), and
+the work decomposition the two split kernels share (:func:`n_pieces`).
 
 Each kernel is one source, ``csrc/<name>.cu``, compiled with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface and bound with
@@ -30,8 +31,14 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# shared memory one block may use on the H100 (kMaxSmem in msa_common.cuh)
-MAX_SMEM = 227 * 1024
+
+# The split kernels (msa_prefill, msa_decode) cut a row's or a q tile's
+# page range into pieces of about PIECE_PAGES pages, at most MAX_PIECES of
+# them, one block each; a work item stacks up to M_ROWS (rows x GQA heads)
+# rows of its products (kMRows in csrc/msa_tile.cuh)
+PIECE_PAGES = 32
+MAX_PIECES = 8
+M_ROWS = 64
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -160,3 +167,32 @@ def check_i32(name: str, what: str, t: torch.Tensor, shape: Sequence[int],
         raise ValueError(f"{name}: {what} must be a contiguous int32 "
                          f"{tuple(shape)} tensor on {device}, got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def check_split_group(name: str, h: int, kh: int) -> None:
+    """The split kernels stack a GQA group's heads into one work item's
+    M_ROWS rows: a group of more heads is not served."""
+    if h // kh > M_ROWS:
+        raise ValueError(f"{name}: GQA group of {h // kh} heads not served "
+                         f"(at most {M_ROWS})")
+
+
+def n_pieces(np_: int, piece_pages: int = PIECE_PAGES) -> int:
+    """The pieces a split kernel's grid gives each page range of a block
+    table ``NP`` pages wide: ``min(MAX_PIECES, ceil(NP / piece_pages))``,
+    at least 1.  It follows from the shape alone, so the grid and the
+    partial scratch do not depend on the step's values; a range of n pages
+    is cut into ``min(n_pieces, ceil(n / piece_pages))`` pieces."""
+    if piece_pages < 1:
+        raise ValueError(f"piece_pages={piece_pages} must be at least 1")
+    return max(1, min(MAX_PIECES, -(-np_ // piece_pages)))
+
+
+def split_scratch(pieces: int, rows: int, h: int, d: int,
+                  device: torch.device):
+    """The f32 partials of a split kernel's cut ranges: o ``(pieces, rows,
+    H, D)`` and (m, l) ``(pieces, rows, H, 2)``; empty when no range can be
+    cut (``pieces == 1``)."""
+    n = pieces if pieces > 1 else 0
+    return (torch.empty((n, rows, h, d), dtype=torch.float32, device=device),
+            torch.empty((n, rows, h, 2), dtype=torch.float32, device=device))

@@ -12,141 +12,155 @@
 //
 // Work decomposition.  The Pallas grid (B, KH, NP) gave each kv head a
 // (G, D) q tile, so the G = H / KH heads of a group share every page it
-// loads, and ran the page axis in order with acc/m/l in VMEM.  Here one
-// block owns one (sequence, kv head) and serves the G heads of the group,
-// so each page is read once per group (4 heads a page at Llama-3.1-8B).
-// The block walks only the pages in [ctx - window, ctx), by page, and
-// never the rest of its NP-wide block table; a padding row of the serving
-// engine (ctx 1, slot 0) costs one page.  The pages of that range are
-// dealt to the block's warps in turn (page j to warp j % kWarps); each
-// warp keeps its own f32 m, l and accumulator for the G heads, with a
-// chunk of the page's keys in registers and the next chunk in flight, and
-// the warps' partial states are merged once at the end (a log-sum-exp
-// merge in shared memory).
+// loads, and ran the page axis in order with acc/m/l in VMEM.  Here a
+// row's range is the pages of [ctx - window, ctx) (all of [0, ctx) without
+// a window), never the rest of its NP-wide block table, so a padding row
+// of the serving engine (ctx 1, slot 0) costs one page.  The range is cut
+// into pieces of about piece_pages pages (at most max_pieces, from NP
+// alone), and a block of the grid is one (row, kv head, piece): the work
+// item of msa_split.cuh with the group's G heads as its M rows, whose
+// pages come into shared memory once for the whole group through the
+// cp.async ring.  With G <= 16 live M rows the four warps each take 8 of
+// every stage's 32 keys and merge their states at the end.  The pieces of
+// a cut range write f32 partials that the merge kernel of the same call
+// combines in piece order.
 //
 // What bounds it on the H100: bytes.  Each needed K/V page is read once
 // per kv head (16 keys x 128 dims x 2 bytes = 4 KB each of K and V at
 // Llama-3.1-8B in bf16) and the block does ~2 flops per byte read for each
 // of the G heads, far below the ~295 flop/byte at which the tensor cores
-// would be the limit.  What this design does about it: only the pages in
-// the row's window are read, each once for the whole GQA group, and kWarps
-// pages are in flight per block so a long context is streamed by all of
-// its block's warps at once.  What it does not do yet: split one long
-// context over several blocks (B x KH blocks fill the card only at large
-// batch), or stage pages in shared memory with TMA.
+// would be the limit.  The products still run on the tensor cores (G of
+// the 16 rows of an mma.sync tile live): the same code as the prefill
+// kernel's items, and a score costs one tile row instead of a warp
+// reduction; the cores are idle either way.  What this design does about
+// the bytes: only the pages in the row's window are read, each once for
+// the whole GQA group, copies run two stages ahead of the math, and a long
+// context is spread over several blocks, so the card is full at small
+// batch.  What it does not do yet: TMA, or several rows of one sequence.
 
-#include "msa_common.cuh"
+#include "msa_split.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-
-template <typename T, int kP>
-__global__ void __launch_bounds__(kThreads, 2) msa_decode_kernel(
-    const T* __restrict__ q,             // (B, H, D)
-    const T* __restrict__ k_pages,       // (P, page, KH, D)
-    const T* __restrict__ v_pages,       // (P, page, KH, D)
-    T* __restrict__ out,                 // (B, H, D)
+template <typename T, int kDP>
+__global__ void __launch_bounds__(kThreadsF, kBlocksPerSm<T, kDP>)
+msa_decode_kernel(
+    const T* __restrict__ q,               // (B, H, D)
+    const T* __restrict__ k_pages,         // (P, page, KH, D)
+    const T* __restrict__ v_pages,         // (P, page, KH, D)
+    T* __restrict__ out,                   // (B, H, D)
+    float* __restrict__ part_o,            // (max_pieces, B, H, D)
+    float* __restrict__ part_ml,           // (max_pieces, B, H, 2)
+    int* __restrict__ row_pieces,          // (B,)
     const int* __restrict__ block_tables,  // (B, NP)
-    const int* __restrict__ ctx_lens,    // (B,)
-    int n_heads, int n_kv_heads, int D, int page, int NP, int window,
-    float softcap, float scale) {
-  extern __shared__ float smem[];
+    const int* __restrict__ ctx_lens,      // (B,)
+    int B, int n_heads, int n_kv_heads, int D, int page, int NP,
+    int piece_pages, int max_pieces, int window, float softcap, float scale,
+    bool wide) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int pc = blockIdx.x % max_pieces;  // piece fastest, then kv head
+  const int kvh = (blockIdx.x / max_pieces) % n_kv_heads;
+  const int b = blockIdx.x / max_pieces / n_kv_heads;
   const int G = n_heads / n_kv_heads;
-  float* acc = smem;                          // (kWarps, G, D)
-  float* m_s = acc + (size_t)kWarps * G * D;  // (kWarps, G)
-  float* l_s = m_s + kWarps * G;              // (kWarps, G)
-
-  const int b = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  for (int i = threadIdx.x; i < kWarps * G * D; i += kThreads) acc[i] = 0.f;
-  for (int i = threadIdx.x; i < kWarps * G; i += kThreads) {
-    m_s[i] = kNegInf;
-    l_s[i] = 0.f;
-  }
-  __syncthreads();
-
+  const int head0 = kvh * G;
   const int ctx = ctx_lens[b];
-  const int qp = ctx - 1;
-  const int last = min(qp, NP * page - 1);
+  const int last = min(ctx - 1, NP * page - 1);
   const int first = window > 0 ? max(ctx - window, 0) : 0;
-  const int j_last = last >= first ? last / page : -1;
-  const size_t key_stride = (size_t)n_kv_heads * D;
-  const T* q_grp = q + ((size_t)b * n_heads + (size_t)kvh * G) * D;
-  float* w_acc = acc + (size_t)warp * G * D;
-  float* w_m = m_s + warp * G;
-  float* w_l = l_s + warp * G;
-  using P2 = typename PairOf<T>::type;
-  constexpr int kC = ChunkOf<T, kP>::value;
-  stream_pages<T, kP, kC>(
-      k_pages, v_pages, block_tables + (size_t)b * NP, first / page + warp,
-      j_last, kWarps, (size_t)page * key_stride, key_stride, (size_t)kvh * D,
-      page, D, lane,
-      [&](const P2 (&kk)[kC][kP], const P2 (&vv)[kC][kP], int kvbase,
-          int c0) {
-        for (int g = 0; g < G; ++g)
-          attend_row<T, kP, kC>(kk, vv, q_grp + (size_t)g * D, qp,
-                                w_acc + (size_t)g * D, w_m + g, w_l + g, D,
-                                page, c0, kvbase, ctx, window, softcap, scale,
-                                lane);
-      });
-
-  __syncthreads();
-  // merge the warps' partial states: out = sum_w e^(m_w - M) acc_w /
-  // sum_w e^(m_w - M) l_w with M = max_w m_w (a warp that saw no key has
-  // m_w = NEG_INF, l_w = 0 and weighs nothing)
-  for (int i = threadIdx.x; i < G * D; i += kThreads) {
-    const int g = i / D;
-    float m = kNegInf;
-    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, m_s[w * G + g]);
-    float l = 0.f, a = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float s = expf(m_s[w * G + g] - m);
-      l += s * l_s[w * G + g];
-      a += s * acc[(size_t)w * G * D + i];
-    }
-    out[((size_t)b * n_heads + (size_t)kvh * G) * D + i] =
-        from_f32<T>(a / fmaxf(l, 1e-30f));
+  const int j0 = first / page;
+  const int n_pages = last >= first ? last / page - j0 + 1 : 0;
+  const int pieces = piece_count(n_pages, piece_pages, max_pieces);
+  T* out_row = out + (size_t)b * n_heads * D;
+  if (pc == 0) {
+    if (kvh == 0 && threadIdx.x == 0) row_pieces[b] = pieces;
+    if (pieces == 0) zero_rows<T>(out_row, 1, G, head0, n_heads, D);
   }
+  if (pc >= pieces) return;
+  const int a = j0 + pc * n_pages / pieces;
+  const int e = j0 + (pc + 1) * n_pages / pieces - 1;
+  const bool cut = pieces > 1;
+  const size_t plane = (size_t)pc * B + b;
+  paged_item<T, kDP>(smem, q + (size_t)b * n_heads * D, k_pages, v_pages,
+                     block_tables + (size_t)b * NP, nullptr, ctx - 1, 1, G,
+                     head0, n_heads, n_kv_heads, kvh, D, page, a, e, ctx,
+                     window, softcap, scale, wide, out_row,
+                     cut ? part_o + plane * n_heads * D : nullptr,
+                     cut ? part_ml + plane * n_heads * 2 : nullptr);
 }
 
-template <typename T, int kP>
+// The rows whose range was cut: one block per 256 output pairs of a row,
+// in piece order (merge_pair).
+template <typename T>
+__global__ void __launch_bounds__(256) msa_decode_merge_kernel(
+    T* __restrict__ out, const float* __restrict__ part_o,
+    const float* __restrict__ part_ml, const int* __restrict__ row_pieces,
+    int B, int n_heads, int D) {
+  const int pairs = n_heads * (D / 2);  // output pairs of a row
+  const int chunks = (pairs + 255) / 256;
+  const int b = blockIdx.x / chunks;
+  const int i = (blockIdx.x % chunks) * 256 + threadIdx.x;
+  if (i >= pairs) return;
+  const int n = row_pieces[b];
+  if (n <= 1) return;
+  merge_pair<T>(out, part_o, part_ml, (size_t)B * n_heads,
+                (size_t)b * n_heads + i / (D / 2), 2 * (i % (D / 2)), D, n);
+}
+
+template <typename T, int kDP>
 int launch(const void* q, const void* k_pages, const void* v_pages, void* out,
+           float* part_o, float* part_ml, int* row_pieces,
            const int* block_tables, const int* ctx_lens, int B, int n_heads,
-           int n_kv_heads, int D, int page, int NP, int window, float softcap,
-           cudaStream_t stream) {
-  const size_t slots = (size_t)kWarps * (n_heads / n_kv_heads);
-  const size_t smem = sizeof(float) * (slots * D + 2 * slots);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      msa_decode_kernel<T, kP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+           int n_kv_heads, int D, int page, int NP, int piece_pages,
+           int max_pieces, int window, float softcap, cudaStream_t stream) {
+  using L = Tile<T, kDP>;
+  static_assert(L::kSmem <= kMaxSmem, "shared memory");
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t err = cudaFuncSetAttribute(
+        msa_decode_kernel<T, kDP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
+  }
+  const long long blocks = (long long)B * n_kv_heads * max_pieces;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  // 16-byte copies need 16-byte aligned rows
+  const bool wide = (D * sizeof(T)) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(k_pages) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(v_pages) % 16 == 0;
   const float scale = (float)(1.0 / sqrt((double)D));
-  dim3 grid(B, n_kv_heads);
-  msa_decode_kernel<T, kP><<<grid, kThreads, smem, stream>>>(
+  msa_decode_kernel<T, kDP><<<(unsigned)blocks, kThreadsF, L::kSmem,
+                              stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<T*>(out), block_tables,
-      ctx_lens, n_heads, n_kv_heads, D, page, NP, window, softcap, scale);
+      static_cast<const T*>(v_pages), static_cast<T*>(out), part_o, part_ml,
+      row_pieces, block_tables, ctx_lens, B, n_heads, n_kv_heads, D, page,
+      NP, piece_pages, max_pieces, window, softcap, scale, wide);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || max_pieces == 1) return (int)err;
+  const long long chunks = (n_heads * (D / 2) + 255) / 256;
+  if ((long long)B * chunks > INT_MAX)
+    return (int)cudaErrorInvalidConfiguration;
+  msa_decode_merge_kernel<T><<<(unsigned)(B * chunks), 256, 0, stream>>>(
+      static_cast<T*>(out), part_o, part_ml, row_pieces, B, n_heads, D);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_for_dim(const void* q, const void* k_pages, const void* v_pages,
-                   void* out, const int* block_tables, const int* ctx_lens,
-                   int B, int n_heads, int n_kv_heads, int D, int page,
-                   int NP, int window, float softcap, cudaStream_t stream) {
-#define MSA_LAUNCH(P)                                                      \
-  return launch<T, P>(q, k_pages, v_pages, out, block_tables, ctx_lens, B, \
-                      n_heads, n_kv_heads, D, page, NP, window, softcap,   \
-                      stream)
-  if (D <= 64) MSA_LAUNCH(1);
-  if (D <= 128) MSA_LAUNCH(2);
-  MSA_LAUNCH(4);
+                   void* out, float* part_o, float* part_ml, int* row_pieces,
+                   const int* block_tables, const int* ctx_lens, int B,
+                   int n_heads, int n_kv_heads, int D, int page, int NP,
+                   int piece_pages, int max_pieces, int window, float softcap,
+                   cudaStream_t stream) {
+#define MSA_LAUNCH(DP)                                                      \
+  return launch<T, DP>(q, k_pages, v_pages, out, part_o, part_ml,           \
+                       row_pieces, block_tables, ctx_lens, B, n_heads,      \
+                       n_kv_heads, D, page, NP, piece_pages, max_pieces,    \
+                       window, softcap, stream)
+  if (D <= 32) MSA_LAUNCH(32);
+  if (D <= 64) MSA_LAUNCH(64);
+  if (D <= 128) MSA_LAUNCH(128);
+  MSA_LAUNCH(256);
 #undef MSA_LAUNCH
 }
 
@@ -154,27 +168,38 @@ int launch_for_dim(const void* q, const void* k_pages, const void* v_pages,
 
 extern "C" {
 
-// Launches on `stream` without synchronising; returns cudaGetLastError()
-// (0 on success).  dtype: 0 = float32, 1 = bfloat16.  D must be even and
-// at most 256; B and KH at least 1, KH at most 65535.
+// Launches the kernel and, when ranges can be cut (max_pieces > 1), the
+// merge on `stream` without synchronising; returns cudaGetLastError() (0
+// on success).  dtype: 0 = float32, 1 = bfloat16.  D must be even and at
+// most 256, H / KH at most 64.  part_o / part_ml are f32 scratch of
+// (max_pieces, B, H, D) and (max_pieces, B, H, 2) (unused when max_pieces
+// is 1), row_pieces int32 scratch of (B,).
 int msa_decode_launch(const void* q, const void* k_pages, const void* v_pages,
-                      void* out, const int* block_tables,
+                      void* out, void* part_o, void* part_ml,
+                      void* row_pieces, const int* block_tables,
                       const int* ctx_lens, int B, int n_heads, int n_kv_heads,
-                      int D, int page, int NP, int window, float softcap,
-                      int dtype, void* stream) {
-  if (n_kv_heads <= 0 || n_kv_heads > 65535 || n_heads % n_kv_heads != 0 ||
-      B <= 0 || page <= 0 || NP < 0 || D <= 0 || D % 2 != 0 || D > 256)
+                      int D, int page, int NP, int piece_pages,
+                      int max_pieces, int window, float softcap, int dtype,
+                      void* stream) {
+  if (n_kv_heads <= 0 || n_heads % n_kv_heads != 0 ||
+      n_heads / n_kv_heads > kMRows || B <= 0 || page <= 0 ||
+      NP < 0 || D <= 0 || D % 2 != 0 || D > 256 || piece_pages <= 0 ||
+      max_pieces <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* po = static_cast<float*>(part_o);
+  float* pml = static_cast<float*>(part_ml);
+  int* rp = static_cast<int*>(row_pieces);
   if (dtype == 0)
-    return launch_for_dim<float>(q, k_pages, v_pages, out, block_tables,
-                                 ctx_lens, B, n_heads, n_kv_heads, D, page,
-                                 NP, window, softcap, st);
+    return launch_for_dim<float>(q, k_pages, v_pages, out, po, pml, rp,
+                                 block_tables, ctx_lens, B, n_heads,
+                                 n_kv_heads, D, page, NP, piece_pages,
+                                 max_pieces, window, softcap, st);
   if (dtype == 1)
-    return launch_for_dim<__nv_bfloat16>(q, k_pages, v_pages, out,
-                                         block_tables, ctx_lens, B, n_heads,
-                                         n_kv_heads, D, page, NP, window,
-                                         softcap, st);
+    return launch_for_dim<__nv_bfloat16>(
+        q, k_pages, v_pages, out, po, pml, rp, block_tables, ctx_lens, B,
+        n_heads, n_kv_heads, D, page, NP, piece_pages, max_pieces, window,
+        softcap, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -4,8 +4,10 @@ kernel (``csrc/msa_decode.cu``), the counterpart of the JAX package's
 
 One new token per sequence, ``q (B, H, D)`` at logical position
 ``ctx - 1``, attends through its block table ``(B, NP)`` to the paged
-pools; one block per (sequence, kv head) serves the whole GQA group, so
-each page is read once per group.
+pools; a block serves one piece of a row's page range (about
+``piece_pages`` pages) for one kv head and the whole GQA group, so each
+page is read once per group and a long context is spread over several
+blocks; the partials of a cut range are merged in the same call.
 
 A CUDA tensor launches the kernel or raises; nothing falls back to the
 plain version (``ref.msa_decode_ref``), which serves CPU tensors only.
@@ -19,8 +21,8 @@ import torch
 from repro_torch.kernels.msa import _build
 
 _SIGNATURES = {
-    "msa_decode_launch": (ctypes.c_int, [ctypes.c_void_p] * 6
-                          + [ctypes.c_int] * 7
+    "msa_decode_launch": (ctypes.c_int, [ctypes.c_void_p] * 9
+                          + [ctypes.c_int] * 9
                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
     "msa_decode_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
@@ -35,33 +37,42 @@ def msa_decode_cuda(
     *,
     window: int = 0,
     softcap: float = 0.0,
+    piece_pages: int = _build.PIECE_PAGES,
 ) -> torch.Tensor:
     """Launch the decode kernel on ``torch.cuda.current_stream()``.
 
     Validates every argument (device, dtype, shape, contiguity, head_dim,
     alignment) and raises on anything the kernel does not take; raises if
-    the launch reports an error.  Counts launches in
-    ``msa_decode_cuda.launches``."""
+    the launch reports an error.  ``piece_pages`` sets how finely a long
+    page range is cut (the grid has ``_build.n_pieces(NP, piece_pages)``
+    pieces a row); it changes the order of the sums, not the function.
+    Counts calls in ``msa_decode_cuda.launches`` (one a call: the kernel
+    and its merge)."""
     name = "msa_decode_cuda"
     _build.check_attention_operands(name, q, k_pages, v_pages, q_dims=3)
+    _build.check_split_group(name, q.shape[-2], k_pages.shape[2])
     dev = q.device
     b, h, d = q.shape
     _, page, kh, _ = k_pages.shape
-    if b == 0 or kh > 65535:
-        raise ValueError(f"{name}: B={b}, KH={kh} not served")
+    if b == 0:
+        raise ValueError(f"{name}: B=0 not served")
     if block_tables.dim() != 2:
         raise ValueError(f"{name}: block_tables must be (B, NP)")
     np_ = block_tables.shape[1]
     _build.check_i32(name, "block_tables", block_tables, (b, np_), dev)
     _build.check_i32(name, "context_lens", context_lens, (b,), dev)
 
+    pieces = _build.n_pieces(np_, piece_pages)
+
     lib = _build.load("msa_decode", _SIGNATURES)
     out = torch.empty_like(q)
-    ptrs = [x.data_ptr() for x in (q, k_pages, v_pages, out, block_tables,
-                                   context_lens)]
+    part_o, part_ml = _build.split_scratch(pieces, b, h, d, dev)
+    row_pieces = torch.empty((b,), dtype=torch.int32, device=dev)
+    ptrs = [x.data_ptr() for x in (q, k_pages, v_pages, out, part_o, part_ml,
+                                   row_pieces, block_tables, context_lens)]
     err = lib.msa_decode_launch(
-        *ptrs, b, h, kh, d, page, np_, int(window), float(softcap),
-        _build.DTYPE_CODE[q.dtype],
+        *ptrs, b, h, kh, d, page, np_, piece_pages, pieces, int(window),
+        float(softcap), _build.DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on_error(lib, "msa_decode", err)
     msa_decode_cuda.launches += 1

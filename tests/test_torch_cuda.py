@@ -12,7 +12,11 @@ decode kernels over those of ``tests/test_kernels.py`` (GQA ratios, head
 dims 16-64, pages 8/16, window, softcap, ragged chunks, a ctx 1 row),
 then at head dims 64/128/256 and pages 8/16/32 with all-padding chunks
 and padding decode rows (ctx 1, slot 0) as the serving engine makes
-them.
+them, then with contexts of more than 32 pages, so that page ranges are
+cut into pieces and merged (head dims 16-256, pages 8-64, GQA groups of
+1-8 heads, a window whose first visible key lies in a later piece), each
+at the wrapper's piece size (launched twice for the same bits) and at a
+smaller one.
 
 Marked ``cuda``; each test skips without a card.  Run on the card with
 ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.  Imports no JAX,
@@ -26,8 +30,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.msa import (UNIT_FIELDS, WL_FIELDS, build_units,
-                                     build_worklist, msa_decode,
+from repro_torch.kernels.msa import (UNIT_FIELDS, WL_FIELDS, _build,
+                                     build_units, build_worklist, msa_decode,
                                      msa_decode_cuda, msa_fused,
                                      msa_fused_cuda, msa_prefill,
                                      msa_prefill_cuda, pad_worklist)
@@ -241,36 +245,48 @@ def _to(dev, dtype, *arrays):
 
 
 def _prefill_vs_plain(dev, dtype, q, kp, vp, bt, ctx, q_pos, q_lens, *,
-                      window=0, softcap=0.0, q_tile=16):
-    """Kernel vs plain version on the card; padding rows exact zeros, and
-    the same bits whatever the q tile."""
+                      window=0, softcap=0.0, piece_pages=2):
+    """Kernel vs plain version on the card, at the wrapper's piece size
+    (the same bits on a second launch) and at ``piece_pages``; padding
+    rows exact zeros.  The larger of the two errors."""
     args = _to(dev, dtype, q, kp, vp, bt, ctx, q_pos, q_lens)
     kw = dict(window=window, softcap=softcap)
     before = msa_prefill_cuda.launches
-    got = msa_prefill(*args, **kw)          # the kernel's own q tile
-    other = msa_prefill_cuda(*args, q_tile=q_tile, **kw)
+    got = msa_prefill(*args, **kw)          # the wrapper's piece size
+    again = msa_prefill(*args, **kw)
+    other = msa_prefill_cuda(*args, piece_pages=piece_pages, **kw)
     torch.cuda.synchronize()
-    assert msa_prefill_cuda.launches == before + 2
-    assert torch.equal(got, other), "result depends on the q tile"
+    assert msa_prefill_cuda.launches == before + 3
+    assert torch.equal(got, again), "two launches disagree"
     want = msa_prefill_ref(*args, **kw)
-    assert got.dtype == dtype and got.shape == want.shape
     pad = torch.arange(q.shape[1], device=dev)[None, :] \
         >= args[6][:, None]
-    assert torch.all(got[pad] == 0), "padding rows not exact zeros"
-    return float((got.float() - want.float()).abs().max())
+    err = 0.0
+    for out in (got, other):
+        assert out.dtype == dtype and out.shape == want.shape
+        assert torch.all(out[pad] == 0), "padding rows not exact zeros"
+        err = max(err, float((out.float() - want.float()).abs().max()))
+    return err
 
 
 def _decode_vs_plain(dev, dtype, q, kp, vp, bt, ctx, *, window=0,
-                     softcap=0.0):
+                     softcap=0.0, piece_pages=2):
+    """As ``_prefill_vs_plain``, for the decode kernel."""
     args = _to(dev, dtype, q, kp, vp, bt, ctx)
     kw = dict(window=window, softcap=softcap)
     before = msa_decode_cuda.launches
     got = msa_decode(*args, **kw)
+    again = msa_decode(*args, **kw)
+    other = msa_decode_cuda(*args, piece_pages=piece_pages, **kw)
     torch.cuda.synchronize()
-    assert msa_decode_cuda.launches == before + 1
+    assert msa_decode_cuda.launches == before + 3
+    assert torch.equal(got, again), "two launches disagree"
     want = msa_decode_ref(*args, **kw)
-    assert got.dtype == dtype and got.shape == want.shape
-    return float((got.float() - want.float()).abs().max())
+    err = 0.0
+    for out in (got, other):
+        assert out.dtype == dtype and out.shape == want.shape
+        err = max(err, float((out.float() - want.float()).abs().max()))
+    return err
 
 
 def _f32(rng, *shape):
@@ -280,12 +296,13 @@ def _f32(rng, *shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("h,kh,d", [(4, 2, 32), (4, 4, 16), (8, 2, 64)])
-@pytest.mark.parametrize("page,q_tile", [(8, 8), (16, 4)])
+@pytest.mark.parametrize("page,piece_pages", [(8, 1), (16, 2)])
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (12, 0.0), (0, 30.0)])
 def test_prefill_kernel_matches_plain_on_card(dev, dtype, h, kh, d, page,
-                                              q_tile, window, softcap):
+                                              piece_pages, window, softcap):
     """The tests/test_kernels.py:34 sweep: a two-segment chunk reaching
-    the end of a full context and a ragged contiguous one."""
+    the end of a full context and a ragged contiguous one; its 5-page
+    ranges also cut into pieces of ``piece_pages`` pages."""
     rng = np.random.default_rng(h * 100 + d + page)
     R, QP, NP, P = 2, 16, 5, 32
     q_pos = np.stack([
@@ -298,7 +315,7 @@ def test_prefill_kernel_matches_plain_on_card(dev, dtype, h, kh, d, page,
         rng.integers(0, P, (R, NP)).astype(np.int32),
         np.asarray([NP * page, 2 * page + 3], np.int32), q_pos,
         np.asarray([QP, QP - 3], np.int32), window=window, softcap=softcap,
-        q_tile=q_tile)
+        piece_pages=piece_pages)
     assert err <= TOL[dtype], err
 
 
@@ -396,6 +413,118 @@ def test_prefill_kernel_all_padding_reads_nothing_and_writes_zeros(dev):
     out = msa_prefill_cuda(q, kp, kp, bt, ctx, q_pos, q_lens)
     torch.cuda.synchronize()
     assert torch.all(out == 0)
+
+
+def _long_split_case(rng, *, H, KH, D, page, P, ctx_pre, ctx_dec, QP=40):
+    """Chunks and decode rows with contexts of more than PIECE_PAGES pages,
+    so that the wrapper's pieces cut their ranges: a multi-segment chunk
+    (rows at 5-9, then the last 30 positions), a ragged contiguous one at
+    the end of its context, an all-padding one; decode rows at those
+    contexts, then a padding row (ctx 1, slot 0).  Block tables draw from
+    a pool of P pages."""
+    ctx_pre = np.asarray(ctx_pre, np.int32)
+    ctx_dec = np.asarray(list(ctx_dec) + [1], np.int32)
+    NP = -(-int(max(ctx_pre.max(), ctx_dec.max())) // page)
+    assert (max(ctx_pre.max(), ctx_dec.max()) - 1) // page + 1 \
+        > _build.PIECE_PAGES, "no range is cut"
+    R = len(ctx_pre) + 1
+    q_pos = np.zeros((R, QP), np.int32)
+    q_lens = np.zeros((R,), np.int32)
+    for r, c in enumerate(ctx_pre):
+        pos = (np.concatenate([np.arange(5, 10), np.arange(c - 30, c)])
+               if r == 0 else np.arange(c - QP + 7, c))
+        q_pos[r, :len(pos)] = pos
+        q_lens[r] = len(pos)
+    ctx = np.append(ctx_pre, 2048).astype(np.int32)   # the padding chunk
+    bt_dec = rng.integers(0, P, (len(ctx_dec), NP)).astype(np.int32)
+    bt_dec[-1] = 0
+    return dict(
+        pre=(_f32(rng, R, QP, H, D), _f32(rng, P, page, KH, D),
+             _f32(rng, P, page, KH, D),
+             rng.integers(0, P, (R, NP)).astype(np.int32), ctx, q_pos,
+             q_lens),
+        dec=(_f32(rng, len(ctx_dec), H, D), bt_dec, ctx_dec))
+
+
+def _both_split(dev, dtype, c, *, window=0, softcap=0.0, piece_pages=3):
+    q, kp, vp = c["pre"][:3]
+    err = _prefill_vs_plain(dev, dtype, *c["pre"], window=window,
+                            softcap=softcap, piece_pages=piece_pages)
+    assert err <= TOL[dtype], ("prefill", err)
+    qd, bt_dec, ctx_dec = c["dec"]
+    err = _decode_vs_plain(dev, dtype, qd, kp, vp, bt_dec, ctx_dec,
+                           window=window, softcap=softcap,
+                           piece_pages=piece_pages)
+    assert err <= TOL[dtype], ("decode", err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [16, 64, 80, 128, 256])
+@pytest.mark.parametrize("page", [8, 12, 16, 32, 64])
+def test_split_kernels_long_ranges_cut_into_pieces_on_card(dev, dtype, D,
+                                                           page):
+    """Both split kernels with contexts of 33 pages to 4096 keys, so that
+    the wrapper's pieces (32 pages) cut the long ranges and the merge runs,
+    at every head-dim class (16 and 80 padded in shared memory), pages
+    8/16/32, a page that leaves stage slots empty (12) and one longer than
+    a stage (64); a softcap on the f32 cases; the same bits twice."""
+    rng = np.random.default_rng(11 * D + page)
+    lo = 33 * page + 1
+    c = _long_split_case(rng, H=8, KH=2, D=D, page=page, P=96,
+                         ctx_pre=rng.integers(lo, 4097, 2),
+                         ctx_dec=rng.integers(lo, 4097, 5))
+    softcap = 30.0 if dtype == torch.float32 else 0.0
+    _both_split(dev, dtype, c, softcap=softcap)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_split_kernels_first_visible_key_in_a_later_piece_on_card(dev,
+                                                                  dtype):
+    """A window with a gap: a tile holds the rows at 5-9 and at 3981-4010
+    of a 4011-key context, so its range (pages 0-249) is cut into 8
+    pieces; with a window of 64 the late rows see only keys from 3918,
+    every piece before the last is masked for them (m stays NEG_INF, l 0,
+    and the merge must weigh it by 0), and the early rows see only the
+    first piece.  Decode rows with a window of 1000 over 4011 keys: a
+    range of 63 pages cut in two, its first page partly masked."""
+    rng = np.random.default_rng(5)
+    c = _long_split_case(rng, H=8, KH=2, D=128, page=16, P=300,
+                         ctx_pre=[4011, 3000], ctx_dec=[4011, 2500, 1001])
+    assert c["pre"][5][0, 0] == 5 and c["pre"][5][0, 5] == 3981
+    for window in (64, 1000):
+        _both_split(dev, dtype, c, window=window, piece_pages=32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_split_kernels_gqa_groups_on_card(dev, dtype, G):
+    """GQA groups of 1, 2, 4 and 8 heads (q tiles of 64, 32, 16 and 8
+    rows; decode items of G live M rows), a QP of 37 (ragged against every
+    tile), contexts of 64 to 4096 keys at Llama's head dim and page, an
+    all-padding chunk and a decode padding row."""
+    rng = np.random.default_rng(G)
+    c = _long_split_case(rng, H=2 * G, KH=2, D=128, page=16, P=300, QP=37,
+                         ctx_pre=[4096, int(rng.integers(64, 4097))],
+                         ctx_dec=rng.integers(64, 4097, 6))
+    _both_split(dev, dtype, c)
+
+
+def test_split_kernels_refuse_groups_above_64_heads(dev):
+    """A work item stacks a GQA group into 64 rows: both split wrappers
+    refuse a group of 65 heads before any launch."""
+    q = torch.zeros((2, 65, 16), dtype=torch.float32, device=dev)
+    pages = torch.zeros((2, 8, 1, 16), dtype=torch.float32, device=dev)
+    i32 = torch.zeros((2,), dtype=torch.int32, device=dev)
+    bt = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="GQA group"):
+        msa_decode_cuda(q, pages, pages, bt, i32)
+    with pytest.raises(ValueError, match="GQA group"):
+        msa_prefill_cuda(q[:, None], pages, pages, bt, i32,
+                         torch.zeros((2, 1), dtype=torch.int32, device=dev),
+                         i32)
 
 
 def test_engine_on_card_matches_cpu(dev):

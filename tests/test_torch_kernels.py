@@ -35,6 +35,7 @@ from repro_torch.kernels.msa import (UNIT_FIELDS, WL_FIELDS,
                                      msa_fused_cuda, msa_prefill,
                                      msa_prefill_cuda, pad_worklist,
                                      tile_ranges, write_kv_pages)
+from repro_torch.kernels.msa import _build
 from repro_torch.kernels.msa.msa_fused import RUN_UNITS, UNIT_PAGES
 from repro_torch.kernels.msa.ref import NEG_INF
 from repro_torch.models import layers as tlayers
@@ -632,6 +633,171 @@ def test_work_units_of_all_padding_tiles_read_no_page():
     assert tiles == {0, 1, 2, 3}
     got = _unit_walk(c, wl, units, page=8, window=0, softcap=0.0)
     assert np.all(got[c["valid"].sum():] == 0)
+
+
+# ---------------------------------------------------------------------------
+# the split kernels' pieces (csrc/msa_prefill.cu, csrc/msa_decode.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("np_,piece_pages,want", [
+    (0, 32, 1), (1, 32, 1), (32, 32, 1), (33, 32, 2), (128, 32, 4),
+    (256, 32, 8), (4096, 32, 8), (5, 1, 5), (5, 2, 3), (256, 64, 4)])
+def test_split_piece_count_follows_the_block_table_width(np_, piece_pages,
+                                                         want):
+    """The pieces a split kernel's grid gives a range come from NP alone:
+    ceil(NP / piece_pages), at least 1, at most MAX_PIECES."""
+    assert _build.n_pieces(np_, piece_pages) == want
+
+
+def test_split_scratch_follows_the_piece_count():
+    """The partial scratch is (pieces, rows, H, D) f32 and (pieces, rows,
+    H, 2), and empty when no range can be cut; a piece needs a page."""
+    o, ml = _build.split_scratch(4, 10, 8, 16, torch.device("cpu"))
+    assert o.shape == (4, 10, 8, 16) and ml.shape == (4, 10, 8, 2)
+    assert o.dtype == ml.dtype == torch.float32
+    o, ml = _build.split_scratch(1, 10, 8, 16, torch.device("cpu"))
+    assert o.numel() == 0 and ml.numel() == 0
+    with pytest.raises(ValueError):
+        _build.n_pieces(8, 0)
+
+
+def _split_walk(q, kp, vp, bt, ctx, q_pos, q_lens, *, window, softcap,
+                piece_pages):
+    """The split kernels' algorithm written out in numpy: each chunk's q
+    tiles of M_ROWS // G rows, each tile's page range from its valid rows
+    (window's low edge to min(max q_pos, ctx - 1), by page), the range cut
+    into min(n_pieces(NP), ceil(n / piece_pages)) even pieces, each piece
+    an f32 online softmax over stages of 32 key slots (a masked key's p
+    set to 0), and a cut range's partials merged in piece order; padding
+    rows, and every row of a tile that reads no page, exact zeros.  The
+    decode kernel is this with one row a chunk at ctx - 1.  Holds the
+    decomposition and its arithmetic (not the kernel's summation order)
+    against the plain version on the CPU.  Returns the output and the
+    number of cut ranges."""
+    R, QP, H, D = q.shape
+    _, page, KH, _ = kp.shape
+    G, NP = H // KH, bt.shape[1]
+    tq = max(1, _build.M_ROWS // G)
+    most = _build.n_pieces(NP, piece_pages)
+    ipp = max(1, 32 // page)
+    out = np.full(q.shape, np.nan, np.float32)
+    n_cut = 0
+    for r in range(R):
+        for t0 in range(0, QP, tq):
+            nv = int(np.clip(q_lens[r] - t0, 0, min(tq, QP - t0)))
+            pos = q_pos[r, t0:t0 + nv].astype(np.int64)
+            out[r, t0:t0 + tq] = 0.0
+            if nv == 0:
+                continue
+            last = min(pos.max(), ctx[r] - 1, NP * page - 1)
+            first = max(pos.min() - window + 1, 0) if window > 0 else 0
+            j0 = first // page
+            n_pages = last // page - j0 + 1 if last >= first else 0
+            if n_pages <= 0:
+                continue
+            pieces = min(most, -(-n_pages // piece_pages))
+            n_cut += pieces > 1
+            qs = q[r, t0:t0 + nv] / np.float32(math.sqrt(D))
+            parts = []
+            for pc in range(pieces):
+                a = j0 + pc * n_pages // pieces
+                b = j0 + (pc + 1) * n_pages // pieces
+                k = np.repeat(kp[bt[r, a:b]].reshape(-1, KH, D), G, axis=1)
+                v = np.repeat(vp[bt[r, a:b]].reshape(-1, KH, D), G, axis=1)
+                kv = (np.arange(a, b)[:, None] * page
+                      + np.arange(page)).reshape(-1)
+                vis = (kv[None] <= pos[:, None]) & (kv[None] < ctx[r])
+                if window > 0:
+                    vis &= pos[:, None] - kv[None] < window
+                sc = np.einsum("rhd,khd->rhk", qs, k).astype(np.float32)
+                if softcap > 0:
+                    sc = np.float32(softcap) * np.tanh(
+                        sc / np.float32(softcap))
+                # stages: ipp whole pages, or 32-key pieces of a longer page
+                starts = (range(0, len(kv), ipp * page) if page <= 32 else
+                          [j + c for j in range(0, len(kv), page)
+                           for c in range(0, page, 32)])
+                m = np.full((nv, H), NEG_INF, np.float32)
+                l = np.zeros((nv, H), np.float32)
+                acc = np.zeros((nv, H, D), np.float32)
+                for k0 in starts:
+                    ks = slice(k0, min(k0 + (ipp * page if page <= 32
+                                             else 32), len(kv)))
+                    ok = vis[:, None, ks]
+                    s_ = np.where(ok, sc[:, :, ks], np.float32(NEG_INF))
+                    m_new = np.maximum(m, s_.max(-1))
+                    alpha = np.exp(m - m_new)
+                    p = np.where(ok, np.exp(s_ - m_new[..., None]), 0.0)
+                    l = l * alpha + p.sum(-1)
+                    acc = acc * alpha[..., None] + np.einsum(
+                        "rhk,khd->rhd", p, v[ks])
+                    m = m_new
+                parts.append((acc, m, l))
+            mm = np.max([m for _, m, _ in parts], axis=0)
+            w = [np.exp(m - mm) for _, m, _ in parts]
+            o = sum(a * wk[..., None] for (a, _, _), wk in zip(parts, w))
+            ll = sum(lk * wk for (_, _, lk), wk in zip(parts, w))
+            out[r, t0:t0 + nv] = o / np.maximum(ll, 1e-30)[..., None]
+    return out, n_cut
+
+
+def _split_case(rng, *, G, page, NP=24, P=40, R=3, QP=70, D=16):
+    """Three padded chunks (a multi-segment one with a gap reaching the end
+    of its context, a ragged one, an all-padding one) and the decode rows
+    of the same pools (two padding rows: ctx 1 and ctx 0)."""
+    H, KH = 2 * G, 2
+    q = rng.standard_normal((R, QP, H, D)).astype(np.float32)
+    kp, vp = _pools(rng, P, page, KH, D)
+    bt = rng.randint(0, P, (R, NP)).astype(np.int32)
+    c0, c1 = NP * page, NP * page - page // 2
+    ctx = np.asarray([c0, c1, 5], np.int32)
+    q_pos = np.zeros((R, QP), np.int32)
+    q_pos[0] = np.concatenate([np.arange(4, 4 + QP // 2),
+                               np.arange(c0 - (QP - QP // 2), c0)])
+    q_pos[1, :QP - 9] = np.arange(c1 - (QP - 9), c1)
+    q_lens = np.asarray([QP, QP - 9, 0], np.int32)
+    B = 6
+    dec = (rng.standard_normal((B, H, D)).astype(np.float32),
+           rng.randint(0, P, (B, NP)).astype(np.int32),
+           np.asarray([NP * page, 3 * page + 1, 17 * page - 3, 40, 1, 0],
+                      np.int32))
+    return (q, kp, vp, bt, ctx, q_pos, q_lens), dec
+
+
+@pytest.mark.parametrize("G,page,piece_pages,window,softcap", [
+    (1, 8, 3, 0, 0.0), (2, 16, 2, 0, 30.0), (4, 8, 1, 20, 0.0),
+    (4, 16, 32, 0, 0.0), (8, 8, 4, 37, 20.0), (8, 64, 1, 0, 0.0),
+    (4, 64, 1, 100, 0.0)])
+def test_split_piece_walk_matches_plain(G, page, piece_pages, window,
+                                        softcap):
+    """The split kernels' decomposition and cut-and-merge arithmetic
+    (``_split_walk``) against the plain prefill and decode versions, GQA
+    groups of 1-8 heads, pages shorter and longer than a stage, a window
+    whose first visible key lies in a later piece; padding rows exact
+    zeros.  Every prefill case but the uncut one (piece_pages 32) cuts a
+    range, and so does every decode case without a window."""
+    rng = np.random.RandomState(G * 10 + page + piece_pages)
+    pre, (qd, btd, ctxd) = _split_case(rng, G=G, page=page)
+    kw = dict(window=window, softcap=softcap)
+    tt = [torch.from_numpy(a) for a in pre]
+    want = msa_prefill(*tt, **kw).numpy()
+    got, n_cut = _split_walk(*pre, piece_pages=piece_pages, **kw)
+    assert (n_cut > 0) == (piece_pages < 24)
+    assert np.max(np.abs(got - want)) < TOL["float32"]
+    q_lens = pre[6]
+    assert np.all(got[0, q_lens[0]:] == 0) and np.all(got[1, q_lens[1]:] == 0)
+    assert np.all(got[2] == 0)
+
+    kp, vp = pre[1], pre[2]
+    want = msa_decode(*(torch.from_numpy(a) for a in (qd, kp, vp, btd,
+                                                      ctxd)), **kw).numpy()
+    dec_pos = (ctxd - 1)[:, None]
+    got, n_cut = _split_walk(qd[:, None], kp, vp, btd, ctxd, dec_pos,
+                             np.ones(len(ctxd), np.int32),
+                             piece_pages=piece_pages, **kw)
+    assert n_cut > 0 or piece_pages >= 24 or window
+    assert np.max(np.abs(got[:, 0] - want)) < TOL["float32"]
+    assert np.all(got[-1] == 0)                  # ctx 0: no key at all
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
