@@ -50,6 +50,20 @@ Phases:
      and in the split layout how many prefill launches had no valid row.
      Phases 3 and 3b also print the mean host seconds a step spends
      assembling its inputs (``StepHandle.assembly_time``).
+  5. Serve six agentic jobs (2-4 tool calls each, contexts to ~3.9k
+     tokens) through the closed-loop ``OnlineFrontend`` with predictive
+     prefetch, over a server with a 384-block pool, a 512-block host tier
+     and ``max_decode_steps`` 8 (k fused decode iterations a dispatch),
+     same model: every session finishes, k-step dispatches and prefetch
+     swap-ins happen, the fused kernel launches once a layer an
+     iteration (``attn_dispatches``) and the split kernels never, one
+     step variant a bucket, and each turn's first logits match the dense
+     reference; TTFT, TPOT and job latency.  The same scripts at k = 1 on
+     the wall clock (TPOT beside k = 8), then at k = 1 and k = 8 on the
+     model clock: equal outputs and first sampled ids, the share of equal
+     ids, first logits within tolerance, fewer decode-only dispatches at
+     k = 8.  Last, one decode-only plan as one k = 8 dispatch against 8
+     single dispatches on the same pools: the same bits in ids and pools.
 
 Prints the card line again, the kernel table (all three kernels) as a
 JSON line, and, last, ``{"ok": true, "device": {...}}``.  Any failure
@@ -567,12 +581,13 @@ def _kernel_counts():
             "msa_decode": msa_decode_cuda}
 
 
-def _measured_run(srv, wl):
-    """Drive one serving run with every kernel's launch count set to 0
-    just before and read just after; count the prefill chunks whose
-    compute positions have gaps (the multi-segment recompute of a history
-    that was partly evicted), and keep each step's host assembly seconds
-    (``StepHandle.assembly_time``) in ``res["assembly_s"]``."""
+def _measured_run(srv, serve):
+    """Drive one serving run (``serve()``, over ``srv``) with every
+    kernel's launch count set to 0 just before and read just after; count
+    the prefill chunks whose compute positions have gaps (the
+    multi-segment recompute of a history that was partly evicted), and
+    keep each step's host assembly seconds (``StepHandle.assembly_time``)
+    in ``res["assembly_s"]``."""
     import torch
     dispatch, seg_chunks, assembly = srv.engine.dispatch, [], []
 
@@ -588,7 +603,7 @@ def _measured_run(srv, wl):
     torch.cuda.reset_peak_memory_stats()
     for fn in _kernel_counts().values():
         fn.launches = 0
-    res = srv.run(wl)
+    res = serve()
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in _kernel_counts().items()}
     res["assembly_s"] = assembly
@@ -667,7 +682,7 @@ def serve_phase():
 
     srv = make_server()
     wl = make_workload(seed=0)
-    res, seg_chunks, launches = _measured_run(srv, wl)
+    res, seg_chunks, launches = _measured_run(srv, lambda: srv.run(wl))
     steps = srv.engine.steps_executed
     print("serve: " + json.dumps(_serve_line(wl, res, seg_chunks, launches)),
           flush=True)
@@ -695,8 +710,9 @@ def serve_phase():
     print(f"serve: worst first-logit rel err {worst:.3e} "
           f"(tolerance {LOGIT_REL_TOL})", flush=True)
     assert worst < LOGIT_REL_TOL, worst
-    return dict(cfg=cfg, launches=launches, make_server=make_server,
-                make_workload=make_workload, wl=wl, refs=refs)
+    return dict(cfg=cfg, params=params, launches=launches,
+                make_server=make_server, make_workload=make_workload, wl=wl,
+                refs=refs)
 
 
 # ---------------------------------------------------------------------------
@@ -716,7 +732,7 @@ def split_serve_phase(fused):
     torch.cuda.synchronize()
     srv = make_server("split")
     wl = make_workload(seed=0)
-    res, seg_chunks, launches = _measured_run(srv, wl)
+    res, seg_chunks, launches = _measured_run(srv, lambda: srv.run(wl))
     steps = srv.engine.steps_executed
     print("serve_split: " + json.dumps(
         _serve_line(wl, res, seg_chunks, launches)), flush=True)
@@ -739,7 +755,7 @@ def split_serve_phase(fused):
     for mode in ("fused", "split"):
         s_ = make_server(mode, clock="model")
         w_ = make_workload(seed=0)
-        r_, seg_, launches_ = _measured_run(s_, w_)
+        r_, seg_, launches_ = _measured_run(s_, lambda: s_.run(w_))
         runs[mode] = (w_, r_, seg_)
     (wf, rf, segf), (ws, rs, segs) = runs["fused"], runs["split"]
     same = {k: (rf[k], rs[k]) for k in
@@ -766,6 +782,207 @@ def split_serve_phase(fused):
     assert all(first_equal), first_equal
     assert max(vs_fused) < LOGIT_REL_TOL and max(vs_dense) < LOGIT_REL_TOL
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the agentic closed loop with multi-token decode
+# ---------------------------------------------------------------------------
+
+ONLINE_K = 8
+
+
+def _online_run(cfg, params, k, clock):
+    """One closed-loop run of the agentic scripts through
+    ``OnlineFrontend`` with predictive prefetch over a server with a host
+    tier and ``max_decode_steps`` k (see ``_measured_run``)."""
+    from repro_torch.serving import (AgenticConfig, AsymCacheServer,
+                                     EngineConfig, FrontendConfig,
+                                     OnlineFrontend, SchedulerConfig,
+                                     ServerConfig, agentic_session_scripts)
+    # a block is 2 MB at these shapes (32 layers, K and V, 8 kv heads of
+    # 128, 16 tokens, bf16); 384 device blocks hold about two of the six
+    # sessions' histories (up to ~3.9k tokens each), so the sessions
+    # suspended in tool calls are evicted to the 512 host blocks and
+    # prefetched back before they resume
+    num_blocks, host_blocks = 384, 512
+    ecfg = EngineConfig(num_pages=num_blocks, page_size=16, max_prefills=4,
+                        max_chunk=128, max_decodes=64, max_blocks_per_seq=256)
+    srv = AsymCacheServer(cfg, params, ServerConfig(
+        num_blocks=num_blocks, host_blocks=host_blocks, clock=clock,
+        scheduler=SchedulerConfig(max_decode_steps=k)), ecfg=ecfg)
+    fe = OnlineFrontend(srv, agentic_session_scripts(AgenticConfig(
+        n_jobs=6, tool_calls_per_job=(2, 4), system_prefix_len=512,
+        task_len=(256, 1024), tool_result_len=(128, 512),
+        output_len=(24, 64), tool_duration=(0.5, 2.0),
+        vocab=cfg.vocab_size, seed=0)), FrontendConfig(prefetch=True))
+    res, _, launches = _measured_run(srv, fe.run)
+    return srv, fe, res, launches
+
+
+def _online_line(srv, fe, res, launches, k, clock):
+    import torch
+    return {
+        "clock": clock, "max_decode_steps": k,
+        "sessions": len(fe.sessions), "turns": res["n_turns"],
+        "steps": res["steps"], "kernel_launches": launches,
+        "attn_dispatches": srv.engine.attn_dispatches,
+        "decode_only_dispatches": res["decode_only_dispatches"],
+        "multi_token_dispatches": res["multi_token_dispatches"],
+        "multi_token_iterations": res["multi_token_iterations"],
+        "multi_token_rollbacks": res["multi_token_rollbacks"],
+        "k_counts": res["k_counts"], "bucket_variants": srv.engine.jit_traces,
+        "evictions": res["evictions"], "swap_outs": res["swap_outs"],
+        "swap_ins": res["swap_ins"],
+        "prefetch_swap_ins": res["prefetch_swap_ins"],
+        "resume_swap_stalls": res["resume_swap_stalls"],
+        "ttft_mean_s": res["online_ttft_mean"],
+        "ttft_p90_s": res["online_ttft_p90"],
+        "tpot_mean_s": res["online_tpot_mean"],
+        "tpot_p90_s": res["online_tpot_p90"],
+        "job_latency_mean_s": res["agent_job_latency_mean"],
+        "job_latency_p90_s": res["agent_job_latency_p90"],
+        "wall_s": res["wall_time"],
+        "steps_per_s": res["steps"] / res["wall_time"],
+        "assembly_mean_s": statistics.mean(res["assembly_s"]),
+        "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _turns(fe):
+    return [r for s in fe.sessions for r in s.requests]
+
+
+def online_phase(fused):
+    """The agentic closed loop on the card: ``OnlineFrontend.run`` ->
+    ``AsymCacheServer.serve`` (host tier, predictive prefetch,
+    ``max_decode_steps`` 8) -> k fused decode iterations a dispatch, each
+    through the fused kernel once a layer.  Then the same scripts at k = 1
+    on the wall clock (TPOT beside k = 8), and at k = 1 and k = 8 on the
+    model clock, held to each other.  Returns the kernel counts of the
+    k = 8 wall-clock run."""
+    from repro_torch.serving import SessionState, reference_logits
+    cfg, params = fused["cfg"], fused["params"]
+    srv, fe, res, launches = _online_run(cfg, params, ONLINE_K, "wall")
+    print("online: " + json.dumps(_online_line(srv, fe, res, launches,
+                                               ONLINE_K, "wall")), flush=True)
+    assert all(s.state is SessionState.FINISHED for s in fe.sessions), \
+        [s.state for s in fe.sessions]
+    assert res["multi_token_dispatches"] > 0, "no k-step dispatch"
+    assert res["prefetch_swap_ins"] > 0, "no prefetch swap-in"
+    assert launches == {"msa_fused": srv.engine.attn_dispatches,
+                        "msa_prefill": 0, "msa_decode": 0}, \
+        (launches, srv.engine.attn_dispatches)
+    assert srv.engine.jit_traces == len(srv.engine.buckets_used)
+    worst = 0.0
+    for r in _turns(fe):
+        ref = reference_logits(cfg, params, r.prompt_tokens)
+        assert r.first_logits is not None and np.all(
+            np.isfinite(r.first_logits))
+        worst = max(worst, _rel(r.first_logits, ref))
+    print(f"online: worst first-logit rel err vs dense {worst:.3e} over "
+          f"{len(_turns(fe))} turns (tolerance {LOGIT_REL_TOL})", flush=True)
+    assert worst < LOGIT_REL_TOL, worst
+
+    one = _online_run(cfg, params, 1, "wall")
+    print("online: " + json.dumps(_online_line(*one, 1, "wall")), flush=True)
+    assert all(s.state is SessionState.FINISHED for s in one[1].sessions)
+
+    runs = {k: _online_run(cfg, params, k, "model") for k in (1, ONLINE_K)}
+    for k, run in runs.items():
+        print("online: " + json.dumps(_online_line(*run, k, "model")),
+              flush=True)
+    (_, f1, r1, _), (_, fk, rk, _) = runs[1], runs[ONLINE_K]
+    t1, tk = _turns(f1), _turns(fk)
+    assert len(t1) == len(tk)
+    assert all(a.prompt_tokens == b.prompt_tokens
+               and a.generated == b.generated for a, b in zip(t1, tk))
+    n_ids = sum(len(a.sampled_ids) for a in t1)
+    n_equal = sum(x == y for a, b in zip(t1, tk)
+                  for x, y in zip(a.sampled_ids, b.sampled_ids))
+    first_equal = [a.sampled_ids[:1] == b.sampled_ids[:1]
+                   for a, b in zip(t1, tk)]
+    vs_one = [_rel(b.first_logits, a.first_logits) for a, b in zip(t1, tk)]
+    print("k_vs_1: " + json.dumps({
+        "clock": "model", "k": ONLINE_K, "turns": len(t1),
+        "generated_equal": True,
+        "first_sampled_id_equal": sum(first_equal),
+        "sampled_ids_equal_share": n_equal / n_ids, "sampled_ids": n_ids,
+        "worst_first_logit_rel_err_vs_k1": max(vs_one),
+        "decode_only_dispatches": {"k1": r1["decode_only_dispatches"],
+                                   f"k{ONLINE_K}":
+                                   rk["decode_only_dispatches"]},
+        "steps": {"k1": r1["steps"], f"k{ONLINE_K}": rk["steps"]}}),
+        flush=True)
+    assert all(first_equal), first_equal
+    assert max(vs_one) < LOGIT_REL_TOL, max(vs_one)
+    assert rk["decode_only_dispatches"] < r1["decode_only_dispatches"]
+    return launches
+
+
+def single_plan_phase(fused):
+    """One decode-only plan of four rows as one k = 8 dispatch against 8
+    single dispatches of the same rows, on two engines that start from
+    the same pools: the same bits in every iteration's ids and in the
+    pools.  The rows' contexts cross 1024 keys inside the 8 iterations, so
+    the k-step's block table is 256 pages wide and the first single steps'
+    64."""
+    import torch
+    from repro_torch.serving import (AsymCacheServer, Engine, EngineConfig,
+                                     SchedulerConfig, ServerConfig, StepPlan,
+                                     decode_burst_workload)
+    cfg, params = fused["cfg"], fused["params"]
+    num_blocks = 4 * 67          # four contexts of 1020 + 40 tokens
+    ecfg = EngineConfig(num_pages=num_blocks, page_size=16, max_prefills=4,
+                        max_chunk=128, max_decodes=64, max_blocks_per_seq=256)
+    srv = AsymCacheServer(cfg, params, ServerConfig(
+        num_blocks=num_blocks, clock="model", pipeline_depth=0,
+        scheduler=SchedulerConfig(token_budget=512,
+                                  max_decode_steps=ONLINE_K)), ecfg=ecfg)
+    multi = srv.engine
+    captured = []
+
+    class _KStep(Exception):
+        pass
+
+    def catch(plan):
+        if plan.decode_steps > 1:
+            captured.append(plan)
+            raise _KStep
+        return Engine.dispatch(multi, plan)
+
+    multi.dispatch = catch
+    try:
+        srv.run(decode_burst_workload(n_requests=4, prompt_len=(1020, 1020),
+                                      output_len=(40, 40),
+                                      vocab=cfg.vocab_size, seed=0))
+    except _KStep:
+        pass
+    del multi.dispatch
+    plan, = captured
+    assert plan.decode_iters == [ONLINE_K] * len(plan.decodes)
+    single = Engine(cfg, ecfg, params)
+    single.k_pools.copy_(multi.k_pools)
+    single.v_pools.copy_(multi.v_pools)
+    widths = {"k_step": multi.buckets_for(plan)}
+    ids_k = multi.execute(plan).token_ids_np()
+    same_ids = []
+    for i in range(ONLINE_K):
+        step = StepPlan(decodes=list(plan.decodes))
+        widths[f"single_{i}"] = single.buckets_for(step)
+        same_ids.append(bool(np.array_equal(
+            single.execute(step).token_ids_np(), ids_k[i])))
+        for r in plan.decodes:         # the server's forced next token
+            r.generated.append(r.output_script[len(r.generated)])
+    torch.cuda.synchronize()
+    same_pools = (torch.equal(multi.k_pools, single.k_pools)
+                  and torch.equal(multi.v_pools, single.v_pools))
+    print("single_plan: " + json.dumps({
+        "k": ONLINE_K, "rows": len(plan.decodes),
+        "context_keys": [r.prompt_len + len(r.generated) - ONLINE_K
+                         for r in plan.decodes],
+        "t_np_buckets": widths, "ids_same_bits": same_ids,
+        "pools_same_bits": same_pools}), flush=True)
+    assert all(same_ids) and same_pools
+    assert widths["single_0"][1] < widths["k_step"][1], widths
 
 
 # ---------------------------------------------------------------------------
@@ -871,11 +1088,13 @@ def main() -> int:
     split_launches = split_serve_phase(fused)
     for mode in ("fused", "split"):
         profile_phase(fused["make_server"], fused["make_workload"], mode)
+    online_launches = online_phase(fused)
+    single_plan_phase(fused)
 
     fused_main = fused_results[("main", "bfloat16")]
     src = "src/repro_torch/kernels/msa/csrc/"
     rows = [("msa_fused", "msa_fused.py:146", fused_main,
-             fused["launches"]["msa_fused"]),
+             online_launches["msa_fused"]),
             ("msa_prefill", "msa_prefill.py:36", prefill_main,
              split_launches["msa_prefill"]),
             ("msa_decode", "msa_decode.py:26", decode_main,

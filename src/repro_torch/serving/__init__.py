@@ -1,4 +1,5 @@
 from repro_torch.serving.engine import Engine, EngineConfig, StepHandle
+from repro_torch.serving.frontend import FrontendConfig, OnlineFrontend
 from repro_torch.serving.request import (
     TERMINAL_STATES,
     Request,
@@ -16,6 +17,11 @@ from repro_torch.serving.server import (
     ScriptedSource,
     ServerConfig,
     reference_logits,
+)
+from repro_torch.serving.sessions import (
+    AgentSession,
+    OnlineTelemetry,
+    SessionState,
 )
 from repro_torch.serving.workload import (
     AgenticConfig,
@@ -38,6 +44,8 @@ __all__ = [
     "SessionStats", "TERMINAL_STATES",
     "ChunkingScheduler", "PrefillChunk", "SchedulerConfig", "StepPlan",
     "AsymCacheServer", "ScriptedSource", "ServerConfig", "reference_logits",
+    "FrontendConfig", "OnlineFrontend",
+    "AgentSession", "OnlineTelemetry", "SessionState",
     "AgenticConfig", "SessionScript", "SharedPrefixConfig", "StressConfig",
     "TurnScript", "WorkloadConfig", "agentic_session_scripts",
     "agentic_workload", "control_plane_stress_scripts",

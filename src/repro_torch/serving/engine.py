@@ -23,8 +23,16 @@ Step shapes come from the same occupancy-bucket lattice as the reference
 np_bucket)`` of the lattice and its work-list to a power-of-two
 ``w_bucket``; a split step always runs at ``(R * QP + B, NP)``.  So
 ``bucket_counts`` and the step counts match the JAX engine.  PyTorch
-runs eagerly; ``jit_traces`` counts the distinct buckets first seen (the
-place a captured CUDA graph per bucket will go).
+runs eagerly; ``jit_traces`` counts the distinct ``(t, np, w, k)``
+buckets first seen, as the reference counts its compiled step variants.
+
+Multi-token decode (fused layout): a decode-only plan with
+``decode_steps == k > 1`` runs k fused decode iterations in one dispatch
+(``_multi_decode_steps``), each the same ``_fused_pass`` a single step
+runs.  An iteration's input token is the host-forced id, or the previous
+iteration's argmax on the device; iterations past a request's
+``decode_iters`` are masked (no KV write, no attention row) and the host
+never consumes their ids.
 
 Host side, ``build_inputs`` assembles every int32 input into one flat
 buffer (``pack_layout_for``) moved to the device in one copy, plus the
@@ -32,9 +40,9 @@ swap payloads.  Copy-on-write page forks and host-tier swap-ins are
 queued and folded into the step as padded index arrays; overflow past
 the static buckets goes through the eager paths.
 
-Later slices of the port bring multi-token decode (``n_iter > 1``),
-quantized swap payloads and pool snapping, MoE, and sharded serving;
-each raises ``NotImplementedError`` here.
+Later slices of the port bring quantized swap payloads and pool
+snapping, MoE, and sharded serving; each raises ``NotImplementedError``
+here.
 """
 from __future__ import annotations
 
@@ -101,26 +109,34 @@ def derive_bucket_lattice(ecfg: "EngineConfig"
 
 
 def pack_layout_for(ecfg: "EngineConfig", t_bucket: int, np_bucket: int,
-                    w_bucket: int) -> Tuple[List[Tuple[str, int, int]], int]:
+                    w_bucket: int, n_iter: int = 1
+                    ) -> Tuple[List[Tuple[str, int, int]], int]:
     """(name, offset, size) triples of the flat int32 pack buffer for one
     occupancy bucket of the single-device layout, plus its total length.
     Beside the reference's fused fields it carries the work units the
-    fused CUDA kernel runs (``UNIT_FIELDS``, :func:`unit_bucket` units and
-    half as many merges); the split layout (``w_bucket`` unused) is the
-    reference's as it is."""
+    fused CUDA kernel runs (``UNIT_FIELDS``, :func:`unit_bucket` units
+    and half as many merges); the split layout (``w_bucket`` unused)
+    is the reference's as it is.
+
+    A multi-token decode plan (``n_iter > 1``, fused layout) carries k
+    copies of the fields that change between its iterations (tokens,
+    positions, valid, the write coordinates, qlen, ctx, the work-list and
+    the work units); seq_ids, sel, qstart, bt and the page-op queues are
+    shared.  The ``n_iter == 1`` layout is the single step's."""
     e = ecfg
     R, B = e.max_prefills, e.max_decodes
     if e.attn_mode == "fused":
-        t, n = t_bucket, R + B
+        t, n, k = t_bucket, R + B, n_iter
         n_tiles = -(-t // min(e.q_tile, t))
-        fields = [("tokens", t), ("positions", t), ("valid", t),
-                  ("write_slot", t), ("write_off", t), ("seq_ids", t),
-                  ("sel", R + B), ("qstart", n), ("qlen", n), ("ctx", n),
-                  ("bt", n * np_bucket)]
-        fields += [(f, w_bucket) for f in WL_FIELDS]
+        fields = [("tokens", k * t), ("positions", k * t),
+                  ("valid", k * t), ("write_slot", k * t),
+                  ("write_off", k * t), ("seq_ids", t),
+                  ("sel", R + B), ("qstart", n), ("qlen", k * n),
+                  ("ctx", k * n), ("bt", n * np_bucket)]
+        fields += [(f, k * w_bucket) for f in WL_FIELDS]
         u_b = unit_bucket(w_bucket, n_tiles)
-        fields += [(f, 2 if f == "unit_counts"
-                    else u_b // 2 if f.startswith("mg_") else u_b)
+        fields += [(f, k * (2 if f == "unit_counts"
+                            else u_b // 2 if f.startswith("mg_") else u_b))
                    for f in UNIT_FIELDS]
     else:
         t, NP = R * e.max_chunk + B, e.max_blocks_per_seq
@@ -141,11 +157,20 @@ def pack_layout_for(ecfg: "EngineConfig", t_bucket: int, np_bucket: int,
 
 
 def unit_bucket(w_bucket: int, n_tiles: int) -> int:
-    """Work units a fused step's pack holds: a run of n items is at most n
-    units, and the zero units are at most one a tile, since the fused
-    assembly packs every sequence's rows densely from row 0 (only the
-    tail is slack).  A function of the buckets, so a step's shapes stay
-    those of its ``(t, np, w)`` bucket."""
+    """Work units a fused iteration's pack holds: a run of n items is at
+    most n units, and a zero unit covers one span of rows no run covers,
+    cut at tile edges.  A single step packs every sequence's rows densely
+    from row 0, so only the tail is free: at most one zero unit a tile.
+    A multi-token iteration keeps each decode row at its row and masks
+    the rows out of output, which leaves holes.  They fit all the same:
+    every row of such a plan is live in its first iteration, with at
+    least one item, and a live row's run later on (its context a few keys
+    longer) is still no more units than it had items then (a unit holds
+    up to 32 pages), so one iteration's run units and holes together stay
+    within the first iteration's items, and so within the shared
+    ``w_bucket``.
+    A function of the buckets, so a step's shapes stay those of its
+    ``(t, np, w, k)`` bucket."""
     return w_bucket + n_tiles
 
 
@@ -216,7 +241,7 @@ class StepHandle:
     accessors run, so the server can assemble the next step while this
     one executes.  ``block`` waits on the CUDA event recorded after the
     step (a no-op on the CPU)."""
-    token_ids: Union[torch.Tensor, np.ndarray]      # (R+B,) greedy samples
+    token_ids: Union[torch.Tensor, np.ndarray]      # (R+B,) or (k, R+B)
     prefill_logits: Union[torch.Tensor, np.ndarray]  # (R, V) rows
     assembly_time: float = 0.0     # host-side build_inputs seconds
     done: Optional[torch.cuda.Event] = None
@@ -278,8 +303,8 @@ class Engine:
         self.v_pools = torch.zeros_like(self.k_pools)
         self.windows = _layer_windows(cfg, L)
         self.steps_executed = 0
-        # distinct (t, np, w, k) buckets first seen — one captured step
-        # variant each; must equal len(buckets_used)
+        # distinct (t, np, w, k) buckets first seen (the reference counts
+        # its compiled step variants); must equal len(buckets_used)
         self.jit_traces = 0
         self.buckets_used: set = set()
         self._pending_copies: List[Tuple[int, int]] = []
@@ -309,16 +334,21 @@ class Engine:
         self.swap_bytes_shipped = 0
         self.decode_only_dispatches = 0
         self.decode_tokens_emitted = 0
-        self._layouts: Dict[Tuple[int, int, int],
+        self.multi_token_dispatches = 0    # dispatches with k > 1
+        self.multi_token_iterations = 0    # sum of k over those
+        self.multi_token_rollbacks = 0     # masked (unconsumed) iterations
+        self.k_counts: Dict[int, int] = {}
+        self._layouts: Dict[Tuple[int, int, int, int],
                             Tuple[List[Tuple[str, int, int]], int]] = {}
 
     # ------------------------------------------------------------------
-    def pack_layout(self, t_bucket: int, np_bucket: int, w_bucket: int):
+    def pack_layout(self, t_bucket: int, np_bucket: int, w_bucket: int,
+                    n_iter: int = 1):
         """Cached :func:`pack_layout_for` of one bucket."""
-        key = (t_bucket, np_bucket, w_bucket)
+        key = (t_bucket, np_bucket, w_bucket, n_iter)
         if key not in self._layouts:
             self._layouts[key] = pack_layout_for(self.ecfg, t_bucket,
-                                                 np_bucket, w_bucket)
+                                                 np_bucket, w_bucket, n_iter)
         return self._layouts[key]
 
     def buckets_for(self, plan: StepPlan) -> Tuple[int, int]:
@@ -358,15 +388,15 @@ class Engine:
 
     # ------------------------------------------------------------------
     def _step_impl(self, params, inp, t_bucket: int, np_bucket: int,
-                   w_bucket: int):
+                   w_bucket: int, n_iter: int = 1):
         """One step on the device: in-step page ops, then per layer
         norm -> q/k/v -> rope -> KV write -> attention (ONE ``msa_fused``
         dispatch, or ``msa_prefill`` + ``msa_decode`` in split mode) ->
         wo -> MLP, then the final norm, the logits at ``sel`` and the
-        greedy argmax on the device."""
-        cfg, e = self.cfg, self.ecfg
-        fused = e.attn_mode == "fused"
-        inp = self._unpack(inp, t_bucket, np_bucket, w_bucket)
+        greedy argmax on the device.  ``n_iter > 1`` runs the k fused
+        decode iterations of a multi-token plan instead."""
+        e = self.ecfg
+        inp = self._unpack(inp, t_bucket, np_bucket, w_bucket, n_iter)
         # swap-ins land first (they commit pages a COW fork in the same
         # round may use as its donor), then copies; both precede the KV
         # writes and attention that read those pages
@@ -374,20 +404,48 @@ class Engine:
                        inp["swap_v_dst"], inp["swap_k"], inp["swap_v"])
         apply_page_copies(self.k_pools, self.v_pools, inp["copy_src"],
                           inp["copy_dst"])
+        if n_iter > 1:
+            return self._multi_decode_steps(params, inp, t_bucket, n_iter)
 
-        blocks = params["blocks"]
-        x = params["embed"][inp["tokens"].long()]        # (T, d)
-        pos = inp["positions"]
-        T, d = x.shape
-        H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        if fused:
-            worklist = tuple(inp[f] for f in WL_FIELDS)
-            units = tuple(inp[f] for f in UNIT_FIELDS)
-            tq = min(e.q_tile, t_bucket)
+        if e.attn_mode == "fused":
+            x = self._fused_pass(
+                params, inp["tokens"], inp["positions"], inp["valid"],
+                inp["write_slot"], inp["write_off"], inp["ctx"], inp["bt"],
+                inp["seq_ids"], tuple(inp[f] for f in WL_FIELDS),
+                tuple(inp[f] for f in UNIT_FIELDS), t_bucket)
         else:
+            cfg = self.cfg
             R, QP = e.max_prefills, e.max_chunk
             RQP = R * QP
-            qpos_pre = pos[:RQP].view(R, QP)
+            H, hd = cfg.n_heads, cfg.head_dim
+            qpos_pre = inp["positions"][:RQP].view(R, QP)
+
+            def attend(l, q, kp, vp):
+                op = msa_prefill(
+                    q[:RQP].view(R, QP, H, hd), kp, vp, inp["bt_pre"],
+                    inp["ctx_pre"], qpos_pre, inp["qlens"],
+                    window=self.windows[l], softcap=cfg.attn_logit_softcap)
+                od = msa_decode(
+                    q[RQP:], kp, vp, inp["bt_dec"], inp["ctx_dec"],
+                    window=self.windows[l], softcap=cfg.attn_logit_softcap)
+                return torch.cat([op.view(RQP, H, hd), od])
+
+            x = self._layers(params, inp["tokens"], inp["positions"],
+                             inp["write_slot"], inp["write_off"],
+                             inp["valid"], attend)
+        token_ids, logits = self._sample(params, x, inp["sel"])
+        return token_ids, logits[:e.max_prefills]
+
+    def _layers(self, params, tokens, pos, write_slot, write_off, valid,
+                attend):
+        """Embed ``tokens`` and run every layer over the stream: norm ->
+        q/k/v -> rope -> KV write -> ``attend(l, q, k_pool, v_pool)`` ->
+        wo -> MLP.  Returns the residual before the final norm."""
+        cfg = self.cfg
+        blocks = params["blocks"]
+        x = params["embed"][tokens.long()]               # (T, d)
+        T, d = x.shape
+        H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         for l in range(cfg.n_layers):
             h = rms_norm(x, blocks["attn_norm"][l], cfg.norm_eps)
             q = (h @ blocks["wq"][l].reshape(d, H * hd)).view(T, H, hd)
@@ -397,37 +455,72 @@ class Engine:
                 q = apply_rope(q, pos, cfg.rope_theta)
                 k_new = apply_rope(k_new, pos, cfg.rope_theta)
             kp, vp = self.k_pools[l], self.v_pools[l]
-            write_kv_pages(kp, vp, k_new, v_new, inp["write_slot"],
-                           inp["write_off"], inp["valid"])
-            if fused:
-                # ONE varlen dispatch over the whole mixed stream
-                attn = msa_fused(
-                    q, kp, vp, inp["bt"], inp["ctx"], pos, inp["seq_ids"],
-                    inp["valid"], worklist=worklist, units=units,
-                    window=self.windows[l], softcap=cfg.attn_logit_softcap,
-                    q_tile=tq)
-            else:
-                op = msa_prefill(
-                    q[:RQP].view(R, QP, H, hd), kp, vp, inp["bt_pre"],
-                    inp["ctx_pre"], qpos_pre, inp["qlens"],
-                    window=self.windows[l], softcap=cfg.attn_logit_softcap)
-                od = msa_decode(
-                    q[RQP:], kp, vp, inp["bt_dec"], inp["ctx_dec"],
-                    window=self.windows[l], softcap=cfg.attn_logit_softcap)
-                attn = torch.cat([op.view(RQP, H, hd), od])
+            write_kv_pages(kp, vp, k_new, v_new, write_slot, write_off,
+                           valid)
+            attn = attend(l, q, kp, vp)
             x = x + attn.reshape(T, H * hd) @ blocks["wo"][l].reshape(
                 H * hd, d)
             h2 = rms_norm(x, blocks["mlp_norm"][l], cfg.norm_eps)
             x = x + swiglu_mlp(h2, blocks["w1"][l], blocks["w3"][l],
                                blocks["w2"][l])
+        return x
 
+    def _fused_pass(self, params, tokens, pos, valid, write_slot, write_off,
+                    ctx, bt, seq_ids, worklist, units, t_bucket: int):
+        """One fused forward over a varlen token stream: per layer the KV
+        page write and ONE ``msa_fused`` dispatch over the whole mixed
+        stream.  A single step and each iteration of a multi-token plan
+        run this same function, op for op (the k-vs-1 identity depends on
+        it).  Returns the residual before the final norm."""
+        cfg = self.cfg
+        tq = min(self.ecfg.q_tile, t_bucket)
+
+        def attend(l, q, kp, vp):
+            return msa_fused(q, kp, vp, bt, ctx, pos, seq_ids, valid,
+                             worklist=worklist, units=units,
+                             window=self.windows[l],
+                             softcap=cfg.attn_logit_softcap, q_tile=tq)
+
+        return self._layers(params, tokens, pos, write_slot, write_off,
+                            valid, attend)
+
+    def _sample(self, params, x, sel):
+        """Final norm, the logits at the ``sel`` rows and the greedy
+        argmax on the device: only (R+B,) ids and the R prefill rows
+        (losslessness checks) leave the device."""
+        cfg = self.cfg
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        logits = x[inp["sel"].long()] @ head             # (R+B, V)
-        # device-side greedy sampling: only (R+B,) ids and the R prefill
-        # rows (losslessness checks) leave the device
-        token_ids = torch.argmax(logits, dim=-1).to(torch.int32)
-        return token_ids, logits[:e.max_prefills]
+        logits = x[sel.long()] @ head                    # (R+B, V)
+        return torch.argmax(logits, dim=-1).to(torch.int32), logits
+
+    def _multi_decode_steps(self, params, inp, t_bucket: int, n_iter: int):
+        """k sequential fused decode iterations in one dispatch.
+
+        Each iteration's input token is the host-forced id where it is
+        >= 0, else the previous iteration's greedy sample for that row,
+        gathered on the device through ``seq_ids``.  The scripted serving
+        loop always forces, so runs stay teacher-forced and comparable
+        with k = 1.  Iterations at or past a request's ``decode_iters``
+        are masked (valid 0: the KV write lands in the drop page; qlen 0:
+        no attention row); the host never consumes their ids.  Returns
+        the ids, (k, R+B), and the last iteration's prefill logit rows."""
+        seq_ids = inp["seq_ids"]
+        ids_steps = []
+        prev = logits = None
+        for i in range(n_iter):
+            tok = inp["tokens"][i]
+            if prev is not None:
+                tok = torch.where(tok >= 0, tok, prev[seq_ids.long()])
+            x = self._fused_pass(
+                params, tok.clamp(min=0), inp["positions"][i],
+                inp["valid"][i], inp["write_slot"][i], inp["write_off"][i],
+                inp["ctx"][i], inp["bt"], seq_ids,
+                tuple(inp[f][i] for f in WL_FIELDS),
+                tuple(inp[f][i] for f in UNIT_FIELDS), t_bucket)
+            prev, logits = self._sample(params, x, inp["sel"])
+            ids_steps.append(prev)
+        return torch.stack(ids_steps), logits[:self.ecfg.max_prefills]
 
     # ------------------------------------------------------------------
     def build_inputs(self, plan: StepPlan):
@@ -435,13 +528,16 @@ class Engine:
 
         Returns ``(inp, (t_bucket, np_bucket, w_bucket))``: every int32
         field assembled into named views of ONE flat host buffer moved to
-        the device in one copy, plus the two swap-payload buffers."""
-        if plan.decode_steps > 1:
-            raise NotImplementedError(
-                "multi-token decode (n_iter > 1) comes with a later slice "
-                "of the port")
+        the device in one copy, plus the two swap-payload buffers.  A
+        multi-token plan gets one work-list and one set of work units an
+        iteration, all padded to one shared W, so the bucket key stays
+        ``(t, np, w, k)``."""
         t_b, np_b = self.buckets_for(plan)
+        n_it = plan.decode_steps
         if self.ecfg.attn_mode != "fused":
+            if n_it > 1:
+                raise ValueError("multi-token decode dispatch requires the "
+                                 "fused single-device layout")
             layout, size = self.pack_layout(t_b, np_b, 0)
             buf = np.zeros((size,), np.int32)
             views = {name: buf[off:off + size_]
@@ -450,24 +546,33 @@ class Engine:
             return self._pack_inputs(buf, views), (t_b, np_b, 0)
         # one derivation of the varlen metadata feeds both the packed
         # buffer and the work-list builder
-        fields = self._assemble_fused(plan, t_b, np_b)
+        if n_it > 1:
+            fields = self._assemble_fused_multi(plan, t_b, np_b, n_it)
+        else:
+            fields = self._assemble_fused(plan, t_b, np_b)
         tq = min(self.ecfg.q_tile, t_b)
         n_tiles = -(-t_b // tq)
-        wl, _ = build_worklist(
-            fields["qstart"], fields["qlen"], fields["ctx"], fields["bt"],
-            fields["positions"], page=self.ecfg.page_size, q_tile=tq,
-            n_tiles=n_tiles, window=0)
-        w_b = max(WL_BUCKET, 1 << (wl["wl_seq"].shape[0] - 1).bit_length())
-        wl = pad_worklist(wl, w_b, sentinel_seq=self.n_seqs)
-        fields.update(wl)
-        fields.update(build_units(
-            wl, fields["qstart"], fields["qlen"], n_rows=t_b, q_tile=tq,
-            n_tiles=n_tiles, pad_to=unit_bucket(w_b, n_tiles)))
-        layout, size = self.pack_layout(t_b, np_b, w_b)
+        # (k, ·) views of the per-iteration fields, k = 1 included
+        qlen, ctx, pos = (fields[f].reshape(n_it, -1)
+                          for f in ("qlen", "ctx", "positions"))
+        wls = [build_worklist(
+            fields["qstart"], qlen[i], ctx[i], fields["bt"], pos[i],
+            page=self.ecfg.page_size, q_tile=tq, n_tiles=n_tiles,
+            window=0)[0] for i in range(n_it)]
+        w_b = max(WL_BUCKET, 1 << (max(
+            wl["wl_seq"].shape[0] for wl in wls) - 1).bit_length())
+        layout, size = self.pack_layout(t_b, np_b, w_b, n_it)
         buf = np.zeros((size,), np.int32)
         views = {name: buf[off:off + size_] for name, off, size_ in layout}
         for name, arr in fields.items():
             views[name][:] = arr.reshape(-1)
+        for i, wl in enumerate(wls):
+            wl = pad_worklist(wl, w_b, sentinel_seq=self.n_seqs)
+            units = build_units(
+                wl, fields["qstart"], qlen[i], n_rows=t_b, q_tile=tq,
+                n_tiles=n_tiles, pad_to=unit_bucket(w_b, n_tiles))
+            for name, arr in (*wl.items(), *units.items()):
+                views[name].reshape(n_it, -1)[i] = arr
         return self._pack_inputs(buf, views), (t_b, np_b, w_b)
 
     def _pack_inputs(self, buf: np.ndarray, views: Dict[str, np.ndarray]
@@ -479,16 +584,23 @@ class Engine:
                 "swap_k": ops["swap_k"], "swap_v": ops["swap_v"]}
 
     def _unpack(self, inp: Dict[str, torch.Tensor], t_bucket: int,
-                np_bucket: int, w_bucket: int) -> Dict[str, torch.Tensor]:
+                np_bucket: int, w_bucket: int,
+                n_iter: int = 1) -> Dict[str, torch.Tensor]:
         """Slices of the packed device buffer back into named step inputs
-        (views of the one transferred buffer)."""
-        layout, _ = self.pack_layout(t_bucket, np_bucket, w_bucket)
+        (views of the one transferred buffer); a multi-token plan's
+        per-iteration fields fold out to (k, ·)."""
+        layout, _ = self.pack_layout(t_bucket, np_bucket, w_bucket, n_iter)
         buf = inp["pack"]
         out = {name: buf[off:off + size] for name, off, size in layout}
         out["valid"] = out["valid"].bool()
         e = self.ecfg
         if e.attn_mode == "fused":
             out["bt"] = out["bt"].view(self.n_seqs, np_bucket)
+            if n_iter > 1:
+                for f in ("tokens", "positions", "valid", "write_slot",
+                          "write_off", "qlen", "ctx") + WL_FIELDS \
+                        + UNIT_FIELDS:
+                    out[f] = out[f].view(n_iter, -1)
         else:
             NP = e.max_blocks_per_seq
             out["bt_pre"] = out["bt_pre"].view(e.max_prefills, NP)
@@ -567,6 +679,73 @@ class Engine:
             sel[R:R + nd] = rows
             off += nd
         assert off <= t_bucket, (off, t_bucket)
+        return dict(tokens=tokens, positions=positions, valid=valid,
+                    write_slot=write_slot, write_off=write_off,
+                    seq_ids=seq_ids, sel=sel, qstart=qstart, qlen=qlen,
+                    ctx=ctx, bt=bt)
+
+    def _assemble_fused_multi(self, plan: StepPlan, t_bucket: int,
+                              np_bucket: int,
+                              k: int) -> Dict[str, np.ndarray]:
+        """Per-iteration varlen assembly of a decode-only multi-token plan
+        (``decode_steps == k > 1``).
+
+        Iteration ``i`` of decode row ``j`` feeds the teacher-forced token
+        at logical position ``p0_j + i`` (``output_script[gen - 1 + i]``,
+        the id iteration ``i - 1`` emits under forcing) and writes that
+        position's KV page.  Iterations at or past ``decode_iters[j]`` are
+        masked: valid 0 (the write lands in the drop page), qlen 0 and
+        ctx 0 (no attention row); row j keeps its place, so the stream
+        has holes (:func:`unit_bucket`).  The device still computes the
+        row's logits, which the host never consumes."""
+        e = self.ecfg
+        bs = e.page_size
+        R, B = e.max_prefills, e.max_decodes
+        t, n = t_bucket, self.n_seqs
+        nd = len(plan.decodes)
+        assert not plan.prefills and 0 < nd <= B
+        iters = np.asarray(plan.decode_iters, np.int32)
+        # every row is live in the first iteration (unit_bucket relies on
+        # it)
+        assert iters.shape == (nd,) and int(iters.max()) == k \
+            and int(iters.min()) >= 1
+
+        tokens = np.zeros((k, t), np.int32)
+        positions = np.zeros((k, t), np.int32)
+        valid = np.zeros((k, t), np.int32)
+        write_slot = np.zeros((k, t), np.int32)
+        write_off = np.zeros((k, t), np.int32)
+        seq_ids = np.zeros((t,), np.int32)
+        sel = np.zeros((R + B,), np.int32)
+        qstart = np.zeros((n,), np.int32)
+        qlen = np.zeros((k, n), np.int32)
+        ctx = np.zeros((k, n), np.int32)
+        bt = np.zeros((n, np_bucket), np.int32)
+
+        rows = np.arange(nd, dtype=np.int32)
+        p0 = np.fromiter((req.prompt_len + len(req.generated) - 1
+                          for req in plan.decodes), np.int32, nd)
+        gen = np.fromiter((len(req.generated) for req in plan.decodes),
+                          np.int32, nd)
+        seq_ids[:nd] = R + rows
+        qstart[R:R + nd] = rows
+        sel[R:R + nd] = rows
+        for j, req in enumerate(plan.decodes):
+            slots = req.slot_array()
+            m = min(np_bucket, slots.shape[0])
+            bt[R + j, :m] = slots[:m]
+        for i in range(k):
+            act = i < iters                 # (nd,) live this iteration
+            p = p0 + i
+            positions[i, :nd] = np.where(act, p, 0)
+            valid[i, :nd] = act
+            qlen[i, R:R + nd] = act
+            ctx[i, R:R + nd] = np.where(act, p + 1, 0)
+            write_off[i, :nd] = np.where(act, p % bs, 0)
+            for j, req in enumerate(plan.decodes):
+                if act[j]:
+                    tokens[i, j] = req.output_script[gen[j] - 1 + i]
+                    write_slot[i, j] = req.slot_array()[p[j] // bs]
         return dict(tokens=tokens, positions=positions, valid=valid,
                     write_slot=write_slot, write_off=write_off,
                     seq_ids=seq_ids, sel=sel, qstart=qstart, qlen=qlen,
@@ -820,13 +999,31 @@ class Engine:
             "engine_dispatches": self.steps_executed,
             "decode_only_dispatches": self.decode_only_dispatches,
             "decode_tokens_emitted": self.decode_tokens_emitted,
-            # multi-token decode comes with a later slice; its keys stay
-            # so results keep the reference's schema
-            "multi_token_dispatches": 0,
-            "multi_token_iterations": 0,
-            "multi_token_rollbacks": 0,
-            "k_counts": {},
+            "multi_token_dispatches": self.multi_token_dispatches,
+            "multi_token_iterations": self.multi_token_iterations,
+            "multi_token_rollbacks": self.multi_token_rollbacks,
+            "k_counts": {f"k{k}": c for k, c
+                         in sorted(self.k_counts.items())},
         }
+
+    def reset_perf_counters(self) -> None:
+        """Zero the deterministic accounting so that one phase of a run
+        can be measured alone.  ``jit_traces`` and ``buckets_used`` are
+        kept: the once-per-bucket invariant spans the engine's life."""
+        self.steps_executed = 0
+        self.attn_dispatches = 0
+        self.valid_token_rows = 0
+        self.total_token_rows = 0
+        self.bucket_counts = {}
+        self.instep_copies = self.eager_copies = 0
+        self.instep_swaps = self.eager_swaps = 0
+        self.swap_bytes_shipped = 0
+        self.decode_only_dispatches = 0
+        self.decode_tokens_emitted = 0
+        self.multi_token_dispatches = 0
+        self.multi_token_iterations = 0
+        self.multi_token_rollbacks = 0
+        self.k_counts = {}
 
     # ------------------------------------------------------------------
     def dispatch(self, plan: StepPlan) -> StepHandle:
@@ -838,30 +1035,37 @@ class Engine:
         in-place pool updates of consecutive steps are ordered by the
         stream)."""
         t0 = time.perf_counter()
+        k = plan.decode_steps
         inp, (t_b, np_b, w_b) = self.build_inputs(plan)
         t_asm = time.perf_counter() - t0
         with torch.no_grad():
             token_ids, pre_logits = self._step_impl(
-                self.params, inp, t_b, np_b, w_b)
+                self.params, inp, t_b, np_b, w_b, k)
         done = None
         if self.device.type == "cuda":
             done = torch.cuda.Event()
             done.record()
         self.steps_executed += 1
-        key = (t_b, np_b, w_b, 1)
+        key = (t_b, np_b, w_b, k)
         if key not in self.buckets_used:
             self.buckets_used.add(key)
             self.jit_traces += 1
         fused = self.ecfg.attn_mode == "fused"
-        self.attn_dispatches += self.cfg.n_layers * (1 if fused else 2)
+        self.attn_dispatches += self.cfg.n_layers * (k if fused else 2)
         emitted = plan.emitted_tokens
         self.valid_token_rows += emitted
-        self.total_token_rows += t_b
+        self.total_token_rows += t_b * k
         self.bucket_counts[(t_b, np_b)] = \
             self.bucket_counts.get((t_b, np_b), 0) + 1
         if plan.decodes and not plan.prefills:
             self.decode_only_dispatches += 1
             self.decode_tokens_emitted += emitted
+        if k > 1:
+            self.multi_token_dispatches += 1
+            self.multi_token_iterations += k
+            self.multi_token_rollbacks += \
+                k * len(plan.decodes) - sum(plan.decode_iters)
+            self.k_counts[k] = self.k_counts.get(k, 0) + 1
         return StepHandle(token_ids=token_ids, prefill_logits=pre_logits,
                           assembly_time=t_asm, done=done)
 

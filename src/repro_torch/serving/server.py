@@ -270,19 +270,15 @@ class AsymCacheServer:
                 raise NotImplementedError(
                     "sharded serving (n_shards > 1) comes with the "
                     "sharding slice of the port")
-            if ecfg.attn_mode != "fused":
-                # multi-token decode is a fused-layout path; the split
-                # layout runs one token a step, as in the reference
-                scfg.scheduler.max_decode_steps = 1
-            if scfg.scheduler.max_decode_steps > 1:
-                raise NotImplementedError(
-                    "multi-token decode (max_decode_steps > 1) comes with "
-                    "a later slice of the port")
             self.engine = Engine(cfg, ecfg, params, device=device)
             # the scheduler picks each step's occupancy bucket from its
             # §5.1 chunk decision — both sides must share one lattice
             self.sched.cfg.token_buckets = self.engine.token_buckets
             self.sched.cfg.page_buckets = self.engine.np_buckets
+            # multi-token decode dispatch is a fused-layout path; the
+            # split layout forces k = 1
+            if ecfg.attn_mode != "fused":
+                scfg.scheduler.max_decode_steps = 1
             # a queued COW copy / host-tier swap-in targets ONE step
             # boundary's pool state — k-step plans wait for empty queues
             self.sched.pending_ops_fn = lambda: bool(

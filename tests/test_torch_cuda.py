@@ -613,3 +613,46 @@ def test_split_engine_on_card_matches_cpu(dev):
     assert rg["steps"] == rc["steps"] and rg["evictions"] == rc["evictions"]
     assert rg["attn_dispatches_per_step"] == 2 * cfg.n_layers
     _same_results(wg, wc)
+
+
+def test_multi_token_engine_on_card_matches_cpu(dev):
+    """Multi-token decode (``max_decode_steps`` 8) on the card against the
+    same server on the CPU (float32 smoke model, a burst of decodes whose
+    outputs end at different iterations): the same schedule, k-step
+    counts and greedy tokens, the fused kernel once a layer an iteration
+    on the card, first logits within 1e-4 of their scale; and the sampled
+    ids of every iteration equal."""
+    from repro_torch.configs import get_smoke_config, scaled_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import (AsymCacheServer, EngineConfig,
+                                     SchedulerConfig, ServerConfig,
+                                     decode_burst_workload)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = scaled_config(get_smoke_config("llama31-8b"), dtype="float32")
+    cpu = init_params(cfg, seed=0, device="cpu")
+    gpu = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
+               else v.to(dev)) for k, v in cpu.items()}
+    runs = []
+    for params, device in ((cpu, "cpu"), (gpu, dev)):
+        scfg = ServerConfig(num_blocks=64, block_size=16, clock="model",
+                            scheduler=SchedulerConfig(
+                                token_budget=128, max_chunk=64,
+                                max_prefills=2, max_decodes=8,
+                                max_decode_steps=8))
+        ecfg = EngineConfig(num_pages=64, page_size=16, max_prefills=2,
+                            max_chunk=64, max_decodes=8)
+        wl = decode_burst_workload(n_requests=6, seed=4)
+        srv = AsymCacheServer(cfg, params, scfg, ecfg=ecfg, device=device)
+        before = msa_fused_cuda.launches
+        res = srv.run(wl)
+        runs.append((wl, res, msa_fused_cuda.launches - before,
+                     srv.engine.attn_dispatches))
+    (wc, rc, lc, _), (wg, rg, lg, ag) = runs
+    assert lc == 0 and lg == ag
+    assert rg["multi_token_dispatches"] > 0 and rg["multi_token_rollbacks"] > 0
+    for key in ("steps", "multi_token_dispatches", "multi_token_iterations",
+                "multi_token_rollbacks", "k_counts"):
+        assert rg[key] == rc[key], key
+    _same_results(wg, wc)
+    for a, b in zip(wg, wc):
+        assert a.sampled_ids == b.sampled_ids

@@ -275,16 +275,9 @@ def test_later_slices_raise_not_implemented(small):
     with pytest.raises(NotImplementedError):
         init_params(moe, device="cpu")
     for scfg in (P.ServerConfig(n_shards=2),
-                 P.ServerConfig(offload=OffloadConfig(quant="int8")),
-                 P.ServerConfig(scheduler=P.SchedulerConfig(
-                     max_decode_steps=4))):
+                 P.ServerConfig(offload=OffloadConfig(quant="int8"))):
         with pytest.raises(NotImplementedError):
             P.AsymCacheServer(cfg, tp, scfg, device="cpu")
-    eng = P.Engine(cfg, P.EngineConfig(num_pages=8), tp, device="cpu")
-    plan = P.StepPlan()
-    plan.decode_steps = 2
-    with pytest.raises(NotImplementedError):
-        eng.build_inputs(plan)
 
 
 def test_entry_points_default_to_the_card():
