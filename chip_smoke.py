@@ -25,7 +25,9 @@ Phases:
        kernel on the fused decode-only step's 32 rows;
      - both split kernels' main cases again at pieces of 8 to 128 pages
        (each timed and held to the plain version); every split case is
-       launched twice and must give the same bits.
+       launched twice and must give the same bits;
+     - each kernel once more at Grok-1's attention shapes (H 48, KH 8, a
+       GQA group of 6, D 128, softcap 30), timed beside its bound.
      Kernel and plain version are timed with CUDA events (median of 20),
      each call queued behind a device sleep so that the events time the
      device alone, beside the bound; the kernels are timed once more from
@@ -64,14 +66,37 @@ Phases:
      ids, first logits within tolerance, fewer decode-only dispatches at
      k = 8.  Last, one decode-only plan as one k = 8 dispatch against 8
      single dispatches on the same pools: the same bits in ids and pools.
+  6. Quantized offload, same model cut to its first 8 layers: phase 5's
+     agentic scripts at k = 8 on the model clock with
+     ``OffloadConfig(quant="int8", retain_host=True)``
+     (int8 codes and scales on the wire, the pool snapped to the int8 grid
+     at write time) against its control arm with full-precision payloads
+     (``payload_fp=True``), then the same pair with ``quant="fp8"``: in
+     each pair the same outputs, sampled ids and first logits bit for bit,
+     equal swap-ins, and at most 0.51x the control's swap bytes.  A
+     committed page spilled and restored by the eager and the in-step
+     swap-in comes back with the same bits, and the fp8 codes of all 65536
+     bf16 bit patterns are the same on the card and on the CPU.
+  7. Free Llama's weights and serve Grok-1 (MoE: 8 experts, top 2, d_ff
+     32768; d 6144, H 48, KH 8, vocab 131072, softcap 30) at full width,
+     cut to 4 layers and dropless routing, bf16, random weights from seed
+     0: three sessions of two turns through a pool that makes the second
+     turns recompute part of their history, fused on the wall clock
+     (launches, first logits against the dense forward, TTFT and TPOT),
+     then fused against split on the model clock (the same schedule and
+     first sampled ids, the share of equal ids), and a profile of a short
+     fused run as phase 4 takes one.
 
 Prints the card line again, the kernel table (all three kernels) as a
 JSON line, and, last, ``{"ok": true, "device": {...}}``.  Any failure
-raises (non-zero exit).
+raises (non-zero exit).  Each phase is a function; ``main`` runs them
+all in order.
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -83,6 +108,8 @@ from pathlib import Path
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
+# Grok-1's attention shapes (src/repro_torch/configs/grok_1_314b.py)
+GROK_ATTN = dict(H=48, KH=8, D=128, page=16)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per dtype
 # Same tolerances as the repo's kernel tests (tests/test_kernels.py):
 # f32 — kernel and plain version both accumulate in float32 and differ
@@ -297,17 +324,25 @@ def fused_cases():
             rng, **llama, q_tile=32, t_bucket=128,
             prefills=[(40, [(37, 40)])], decode_ctx=[17, 333]),
     }
-    return main, decode, small
+    # Grok-1's attention (phase 7): a GQA group of 6 heads and softcap 30,
+    # a multi-segment chunk (272 rows) and 32 decode rows
+    grok = _step_case(
+        rng, **GROK_ATTN, q_tile=q_tile, t_bucket=320, softcap=30.0,
+        prefills=[(1536, [(256, 400), (1408, 1536)])],
+        decode_ctx=rng.integers(64, 1700, size=32))
+    return main, decode, small, grok
 
 
 def kernel_phase():
-    main, decode, small = fused_cases()
+    main, decode, small, grok = fused_cases()
     results = {}
     for dtype_name in ("bfloat16", "float32"):
         results[("main", dtype_name)] = _run_case(main, dtype_name,
                                                   time_it=True)
         results[("decode", dtype_name)] = _run_case(decode, dtype_name,
                                                     time_it=True)
+        results[("grok_g6", dtype_name)] = _run_case(grok, dtype_name,
+                                                     time_it=True)
         for name, case in small.items():
             results[(name, dtype_name)] = _run_case(case, dtype_name)
     for (name, dtype_name), res in results.items():
@@ -489,7 +524,17 @@ def split_cases():
             rng, **llama, softcap=30.0,
             ctx_active=rng.integers(1, 2000, size=12), n_pad=4),
     }
-    return main_prefill, main_decode, small
+    # Grok-1's attention (phase 7), timed: a GQA group of 6, softcap 30
+    grok = {
+        ("prefill", "grok_g6"): _prefill_case(
+            rng, **GROK_ATTN, QP=128, softcap=30.0, chunks=[
+                (1536, [(256, 300), (1452, 1536)]), (1700, [(1600, 1700)]),
+                (900, []), (512, [(384, 512)])]),
+        ("decode", "grok_g6"): _decode_case(
+            rng, **GROK_ATTN, softcap=30.0,
+            ctx_active=rng.integers(64, 1700, size=32), n_pad=32),
+    }
+    return main_prefill, main_decode, small, grok
 
 
 def _decode_only_as_split(fused_decode):
@@ -506,13 +551,16 @@ def split_kernel_phase(fused_results, fused_decode):
     """The prefill and decode kernels against their plain versions, and
     the decode kernel on the fused kernel's decode-only step."""
     import torch
-    main_prefill, main_decode, small = split_cases()
+    main_prefill, main_decode, small, grok = split_cases()
     results = {}
     for dtype_name in ("bfloat16", "float32"):
         results[("prefill", "main", dtype_name)] = _run_split_case(
             "prefill", main_prefill, dtype_name, time_it=True)
         results[("decode", "main", dtype_name)] = _run_split_case(
             "decode", main_decode, dtype_name, time_it=True)
+        for (kind, name), case in grok.items():
+            results[(kind, name, dtype_name)] = _run_split_case(
+                kind, case, dtype_name, time_it=True)
         for (kind, name), case in small.items():
             results[(kind, name, dtype_name)] = _run_split_case(
                 kind, case, dtype_name)
@@ -791,10 +839,12 @@ def split_serve_phase(fused):
 ONLINE_K = 8
 
 
-def _online_run(cfg, params, k, clock):
+def _online_run(cfg, params, k, clock, offload=None):
     """One closed-loop run of the agentic scripts through
     ``OnlineFrontend`` with predictive prefetch over a server with a host
-    tier and ``max_decode_steps`` k (see ``_measured_run``)."""
+    tier and ``max_decode_steps`` k (see ``_measured_run``), and the host
+    tier's ``offload`` policy (default: full precision)."""
+    from repro_torch.core import OffloadConfig
     from repro_torch.serving import (AgenticConfig, AsymCacheServer,
                                      EngineConfig, FrontendConfig,
                                      OnlineFrontend, SchedulerConfig,
@@ -809,6 +859,7 @@ def _online_run(cfg, params, k, clock):
                         max_chunk=128, max_decodes=64, max_blocks_per_seq=256)
     srv = AsymCacheServer(cfg, params, ServerConfig(
         num_blocks=num_blocks, host_blocks=host_blocks, clock=clock,
+        offload=offload or OffloadConfig(),
         scheduler=SchedulerConfig(max_decode_steps=k)), ecfg=ecfg)
     fe = OnlineFrontend(srv, agentic_session_scripts(AgenticConfig(
         n_jobs=6, tool_calls_per_job=(2, 4), system_prefix_len=512,
@@ -986,6 +1037,328 @@ def single_plan_phase(fused):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: quantized offload formats
+# ---------------------------------------------------------------------------
+
+def _spill_round_trip(srv):
+    """One committed page of ``srv``'s pool (a finished run's) spilled
+    through the block manager's encoder (the configured wire format) and
+    restored into two other pages, by the eager and by the in-step
+    swap-in: whether both come back with the page's bits, in K and in
+    V."""
+    import torch
+    from repro_torch.kernels.msa import apply_swap_ins
+    eng, bm = srv.engine, srv.bm
+    slot, *others = bm.table.values()
+    free = others[-2:]
+    raw_k, raw_v = eng.swap_out(slot)
+    half_k = bm._encode_half(raw_k, 0, "k")
+    half_v = bm._encode_half(raw_v, 0, "v")
+    eng.swap_in(free[0], (half_k, half_v))
+    eng.queue_swap_in(free[1], (half_k, half_v))
+    e = eng.ecfg
+    views = {n: np.zeros((e.max_instep_copies,), np.int32)
+             for n in ("copy_src", "copy_dst")}
+    views.update({n: np.zeros((e.max_instep_swaps,), np.int32)
+                  for n in ("swap_k_dst", "swap_v_dst")})
+    ops = eng._fold_page_ops(views)
+    dev = eng.device
+    apply_swap_ins(eng.k_pools, eng.v_pools,
+                   torch.from_numpy(views["swap_k_dst"]).to(dev),
+                   torch.from_numpy(views["swap_v_dst"]).to(dev),
+                   ops["swap_k"], ops["swap_v"], ops["swap_k_scale"],
+                   ops["swap_v_scale"])
+    torch.cuda.synchronize()
+    same = {}
+    for name, pools in (("k", eng.k_pools), ("v", eng.v_pools)):
+        bits = pools.view(torch.int16)
+        same[name] = {"eager": bool(torch.equal(bits[:, free[0]],
+                                                bits[:, slot])),
+                      "in_step": bool(torch.equal(bits[:, free[1]],
+                                                  bits[:, slot]))}
+    return {"wire_format": half_k.fmt, "slot": int(slot),
+            "half_bytes": half_k.nbytes, "same_bits": same,
+            "nonzero": bool(eng.k_pools[:, slot].abs().max() > 0)}
+
+
+def _f8_cast_check():
+    """fp8 codes of all 65536 bf16 bit patterns on the card against the
+    CPU: the port's encoder (``f8_codes``) must agree everywhere, torch's
+    own cast at least below the overflow boundary (the encoder relies on
+    it there), and the decode of all 256 codes to bf16 must agree."""
+    import torch
+    from repro_torch.core.offload import F8_OVERFLOW, f8_codes, f8_values
+    bits = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    x_cpu = bits.view(torch.bfloat16)
+    x_dev = x_cpu.to("cuda")
+    enc_cpu, enc_dev = f8_codes(x_cpu), f8_codes(x_dev).cpu()
+    raw_cpu = x_cpu.to(torch.float8_e4m3fn).view(torch.uint8)
+    raw_dev = x_dev.to(torch.float8_e4m3fn).view(torch.uint8).cpu()
+    below = x_cpu.float().abs() <= F8_OVERFLOW
+    codes = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    dec_cpu = f8_values(codes, torch.bfloat16).float()
+    dec_dev = f8_values(codes.to("cuda"), torch.bfloat16).float().cpu()
+    line = {
+        "bf16_patterns": int(bits.numel()),
+        "f8_codes_card_eq_cpu": int((enc_cpu == enc_dev).sum()),
+        "torch_cast_card_eq_cpu": int((raw_cpu == raw_dev).sum()),
+        "torch_cast_card_eq_cpu_below_overflow":
+            int((raw_cpu == raw_dev)[below].sum()),
+        "below_overflow": int(below.sum()),
+        "decode_256_codes_equal": bool(torch.equal(
+            dec_cpu.nan_to_num(7.0), dec_dev.nan_to_num(7.0))
+            and torch.equal(dec_cpu.isnan(), dec_dev.isnan()))}
+    print("f8_cast: " + json.dumps(line), flush=True)
+    assert line["f8_codes_card_eq_cpu"] == line["bf16_patterns"], line
+    assert (line["torch_cast_card_eq_cpu_below_overflow"]
+            == line["below_overflow"]), line
+    assert line["decode_256_codes_equal"], line
+
+
+# phase 6 serves Llama-3.1-8B's first 8 layers (the same weights): its
+# four closed-loop runs take ~4 minutes at 32 layers, and neither the
+# identity of the arms nor the byte ratio depends on the depth (a block's
+# payload is the layers times one layer's page)
+OFFLOAD_LAYERS = 8
+
+
+def offload_phase(full_cfg, full_params):
+    """Quantized host-tier offload on the card: phase 5's agentic scripts
+    at k = 8 on the model clock, each quantized arm (int8, fp8) against
+    its control arm with full-precision payloads (the pool is snapped to
+    the same grid in both): the same bits out, the compressed bytes on
+    the wire.  Then a spilled page's round trip and the fp8 codes against
+    the CPU.  The model is ``full_cfg`` cut to ``OFFLOAD_LAYERS`` layers,
+    on views of ``full_params``' first layers."""
+    from repro_torch.core import OffloadConfig
+    from repro_torch.serving import SessionState, reference_logits
+    cfg = dataclasses.replace(full_cfg, n_layers=OFFLOAD_LAYERS)
+    params = {**full_params, "blocks": {
+        k: v[:OFFLOAD_LAYERS] for k, v in full_params["blocks"].items()}}
+    cuts = {"n_layers": [full_cfg.n_layers, cfg.n_layers]}
+    for quant in ("int8", "fp8"):
+        arms = {}
+        for payload_fp in (True, False):
+            offload = OffloadConfig(quant=quant, payload_fp=payload_fp,
+                                    retain_host=True)
+            srv, fe, res, launches = _online_run(cfg, params, ONLINE_K,
+                                                 "model", offload=offload)
+            arms[payload_fp] = (srv, fe, res)
+            line = _online_line(srv, fe, res, launches, ONLINE_K, "model")
+            line.update(quant=quant, wire_format=srv.engine.ecfg.swap_payload,
+                        snap=srv.engine.ecfg.snap,
+                        swap_bytes_shipped=srv.engine.swap_bytes_shipped,
+                        instep_swaps=srv.engine.instep_swaps,
+                        eager_swaps=srv.engine.eager_swaps)
+            print("offload: " + json.dumps(line), flush=True)
+            assert all(s.state is SessionState.FINISHED
+                       for s in fe.sessions)
+            assert launches == {"msa_fused": srv.engine.attn_dispatches,
+                                "msa_prefill": 0, "msa_decode": 0}, launches
+        (sa, fa, ra), (sb, fb, rb) = arms[True], arms[False]
+        ta, tb = _turns(fa), _turns(fb)
+        same = {
+            "generated": all(a.generated == b.generated
+                             for a, b in zip(ta, tb)),
+            "sampled_ids": all(a.sampled_ids == b.sampled_ids
+                               for a, b in zip(ta, tb)),
+            "first_logits_bits": all(
+                np.array_equal(a.first_logits.view(np.int32),
+                               b.first_logits.view(np.int32))
+                for a, b in zip(ta, tb))}
+        shipped = [sa.engine.swap_bytes_shipped, sb.engine.swap_bytes_shipped]
+        ratio = shipped[1] / shipped[0]
+        # the snap is quantization-aware serving: its drift from the dense
+        # bf16 forward is reported, not held to the losslessness tolerance
+        drift = max(_rel(b.first_logits,
+                         reference_logits(cfg, params, b.prompt_tokens))
+                    for b in tb)
+        spill = _spill_round_trip(sb)
+        print("offload_pair: " + json.dumps({
+            "config": cfg.name, "cuts": cuts, "quant": quant,
+            "turns": len(ta), "same": same,
+            "swap_ins": [ra["swap_ins"], rb["swap_ins"]],
+            "swap_bytes_shipped": shipped,
+            "bytes_ratio": ratio, "bytes_ratio_limit": 0.51,
+            "worst_first_logit_rel_err_vs_dense_forward": drift,
+            "spill_round_trip": spill}), flush=True)
+        assert len(ta) == len(tb) and all(same.values()), same
+        assert ra["swap_ins"] > 0 and ra["swap_ins"] == rb["swap_ins"]
+        assert ratio <= 0.51, ratio
+        assert spill["nonzero"] and all(
+            v for half in spill["same_bits"].values()
+            for v in half.values()), spill
+        del arms, sa, sb, fa, fb
+        gc.collect()
+    _f8_cast_check()
+
+
+# ---------------------------------------------------------------------------
+# phase 7: Grok-1 (MoE) at full width
+# ---------------------------------------------------------------------------
+
+GROK_LAYERS = 4
+# 128 blocks of 16 tokens (2048 tokens) hold the longest session (~1.6k
+# tokens) but not the three first turns (~2.8k), so the second turns find
+# part of their history evicted and recompute it
+GROK_BLOCKS = 128
+
+
+def _history_recomputed(wl):
+    """Prompt tokens of each later turn computed again although its
+    session's previous turn had computed them (evicted history), summed:
+    what the turn computed beyond its own new tokens."""
+    prev, total = {}, 0
+    for r in sorted(wl, key=lambda r: r.rid):
+        p = prev.get(r.session_id)
+        if p is not None:
+            new = len(r.prompt_tokens) - len(p.prompt_tokens) \
+                - len(p.generated)
+            total += r.n_prefill_compute - new
+        prev[r.session_id] = r
+    return total
+
+
+def grok_config():
+    """Grok-1 at full width, cut to ``GROK_LAYERS`` layers so that its
+    weights fit on one card, with dropless routing (capacity = tokens),
+    which lossless serving needs; and the cuts, as (full, served)."""
+    from repro_torch.configs import get_config
+    full = get_config("grok-1-314b")
+    cfg = dataclasses.replace(full, n_layers=GROK_LAYERS,
+                              moe=dataclasses.replace(full.moe,
+                                                      dropless=True))
+    cuts = {"n_layers": [full.n_layers, cfg.n_layers],
+            "moe.dropless": [full.moe.dropless, cfg.moe.dropless]}
+    return cfg, cuts
+
+
+def grok_workload(cfg, seed):
+    from repro_torch.serving import WorkloadConfig, multi_turn_workload
+    return multi_turn_workload(WorkloadConfig(
+        n_sessions=3, turns_per_session=(2, 2), first_ctx_len=(512, 1536),
+        output_len=(16, 16), qps=0.5, vocab=cfg.vocab_size, seed=seed))
+
+
+def grok_server(cfg, params, attn_mode="fused", clock="wall"):
+    from repro_torch.serving import (AsymCacheServer, EngineConfig,
+                                     ServerConfig)
+    ecfg = EngineConfig(num_pages=GROK_BLOCKS, page_size=16,
+                        max_prefills=4, max_chunk=128, max_decodes=64,
+                        max_blocks_per_seq=128, attn_mode=attn_mode)
+    return AsymCacheServer(cfg, params, ServerConfig(
+        num_blocks=GROK_BLOCKS, clock=clock, attn_mode=attn_mode),
+        ecfg=ecfg)
+
+
+def grok_phase():
+    """Grok-1's MoE served on the card: the weights (about 43 GB in bf16
+    at 4 layers), the fused serving run on the wall clock with its
+    launches and losslessness, then fused against split on the model
+    clock."""
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.serving import reference_logits
+    cfg, cuts = grok_config()
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0)          # on the card
+    # wq/wk to fan-in, as phase 3 does for Llama (init_params keeps the
+    # reference's 1/sqrt(H))
+    for name in ("wq", "wk"):
+        params["blocks"][name].mul_(math.sqrt(cfg.n_heads / cfg.d_model))
+    torch.cuda.synchronize()
+    tensors = list(params["blocks"].values()) + [
+        t for k, t in params.items() if k != "blocks"]
+    print("grok: " + json.dumps({
+        "config": cfg.name, "cuts": cuts, "d_model": cfg.d_model,
+        "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+        "head_dim": cfg.head_dim, "experts": cfg.moe.num_experts,
+        "top_k": cfg.moe.top_k, "d_ff": cfg.d_ff,
+        "vocab": cfg.vocab_size, "softcap": cfg.attn_logit_softcap,
+        "dtype": cfg.dtype, "params": sum(t.numel() for t in tensors),
+        "param_gib": sum(t.numel() * t.element_size()
+                         for t in tensors) / 2**30,
+        "init_s": time.perf_counter() - t0,
+        "device_gib_allocated": torch.cuda.memory_allocated() / 2**30}),
+        flush=True)
+
+    grok_server(cfg, params).run(grok_workload(cfg, seed=1)[:1])  # warm-up
+    torch.cuda.synchronize()
+    srv = grok_server(cfg, params)
+    wl = grok_workload(cfg, seed=0)
+    res, seg_chunks, launches = _measured_run(srv, lambda: srv.run(wl))
+    steps = srv.engine.steps_executed
+    line = _serve_line(wl, res, seg_chunks, launches)
+    line["attn_dispatches"] = srv.engine.attn_dispatches
+    line["history_tokens_recomputed"] = _history_recomputed(wl)
+    print("grok_serve: " + json.dumps(line), flush=True)
+    assert all(r.status == "finished" for r in wl), [r.status for r in wl]
+    assert res["evictions"] > 0, "the pool never evicted"
+    assert line["history_tokens_recomputed"] > 0, "no history recomputed"
+    assert launches == {"msa_fused": srv.engine.attn_dispatches,
+                        "msa_prefill": 0, "msa_decode": 0}, launches
+    assert srv.engine.attn_dispatches == L * steps
+    worst, refs = 0.0, []
+    for r in wl:
+        # one prompt at a time: a dropless dense forward at ~1.7k tokens
+        # holds (8, T, 32768) bf16 expert activations of ~0.9 GB each
+        ref = reference_logits(cfg, params, r.prompt_tokens)
+        refs.append(ref)
+        assert r.first_logits is not None and np.all(
+            np.isfinite(r.first_logits))
+        rel = _rel(r.first_logits, ref)
+        worst = max(worst, rel)
+        print(f"grok_serve: request {r.rid} prompt {len(r.prompt_tokens)} "
+              f"rel_err {rel:.3e} argmax_match "
+              f"{int(np.argmax(r.first_logits)) == int(np.argmax(ref))}",
+              flush=True)
+    print(f"grok_serve: worst first-logit rel err {worst:.3e} "
+          f"(tolerance {LOGIT_REL_TOL})", flush=True)
+    assert worst < LOGIT_REL_TOL, worst
+
+    runs = {}
+    for mode in ("fused", "split"):
+        s_ = grok_server(cfg, params, mode, clock="model")
+        w_ = grok_workload(cfg, seed=0)
+        r_, seg_, launches_ = _measured_run(s_, lambda: s_.run(w_))
+        n = s_.engine.steps_executed
+        want = ({"msa_fused": L * n, "msa_prefill": 0, "msa_decode": 0}
+                if mode == "fused" else
+                {"msa_fused": 0, "msa_prefill": L * n, "msa_decode": L * n})
+        assert launches_ == want, (mode, launches_, want)
+        runs[mode] = (w_, r_, seg_, launches_)
+    (wf, rf, segf, lf), (ws, rs, segs, ls) = runs["fused"], runs["split"]
+    same = {k: (rf[k], rs[k]) for k in
+            ("steps", "evictions", "prefill_compute_tokens")}
+    same["multi_segment_chunks"] = (segf, segs)
+    same["history_tokens_recomputed"] = (_history_recomputed(wf),
+                                         _history_recomputed(ws))
+    n_ids = sum(len(a.sampled_ids) for a in wf)
+    n_equal = sum(x == y for a, b in zip(wf, ws)
+                  for x, y in zip(a.sampled_ids, b.sampled_ids))
+    first_equal = [a.sampled_ids[:1] == b.sampled_ids[:1]
+                   for a, b in zip(wf, ws)]
+    vs_fused = [_rel(b.first_logits, a.first_logits) for a, b in zip(wf, ws)]
+    vs_dense = [_rel(b.first_logits, ref) for b, ref in zip(ws, refs)]
+    print("grok_split_vs_fused: " + json.dumps({
+        "clock": "model", "schedule": same, "launches": {"fused": lf,
+                                                         "split": ls},
+        "first_sampled_id_equal": sum(first_equal), "requests": len(wf),
+        "sampled_ids_equal_share": n_equal / n_ids, "sampled_ids": n_ids,
+        "worst_first_logit_rel_err_vs_fused": max(vs_fused),
+        "worst_first_logit_rel_err_vs_dense": max(vs_dense)}), flush=True)
+    assert all(a == b for a, b in same.values()), same
+    assert same["history_tokens_recomputed"][0] > 0, same
+    assert all(a.status == b.status == "finished" for a, b in zip(wf, ws))
+    assert all(first_equal), first_equal
+    assert max(vs_fused) < LOGIT_REL_TOL and max(vs_dense) < LOGIT_REL_TOL
+    # where a Grok-1 step's device time goes (fused layout)
+    profile_phase(lambda mode: grok_server(cfg, params, mode),
+                  lambda seed: grok_workload(cfg, seed), "fused")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: where a serving run's device time goes
 # ---------------------------------------------------------------------------
 
@@ -1028,7 +1401,8 @@ def profile_phase(make_server, make_workload, mode="fused"):
         print(f"profile ({mode}): the profiler recorded no device time "
               "(not measured)", flush=True)
         return
-    line = {"layout": mode, "steps": res["steps"], "wall_ms": wall_us / 1e3,
+    line = {"model": srv.engine.cfg.name, "layout": mode,
+            "steps": res["steps"], "wall_ms": wall_us / 1e3,
             "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1.0 - busy_us / wall_us,
             "device_ms_per_step": busy_us / 1e3 / res["steps"]}
@@ -1044,7 +1418,8 @@ def profile_phase(make_server, make_workload, mode="fused"):
     print("profile: " + json.dumps(line), flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print("profile_kernel " + json.dumps({
-            "layout": mode, "name": e.key[:90], "calls": e.count,
+            "model": srv.engine.cfg.name, "layout": mode,
+            "name": e.key[:90], "calls": e.count,
             "device_ms": e.self_device_time_total / 1e3,
             "share_of_busy": e.self_device_time_total / busy_us}),
             flush=True)
@@ -1090,6 +1465,17 @@ def main() -> int:
         profile_phase(fused["make_server"], fused["make_workload"], mode)
     online_launches = online_phase(fused)
     single_plan_phase(fused)
+    offload_phase(fused["cfg"], fused["params"])
+    # Grok-1's ~43 GB of weights must not meet Llama's 16 GB: drop every
+    # reference to Llama's weights and pools (the servers hold cycles)
+    del fused
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2**30
+    print(f"grok: {left:.2f} GiB of device memory held before Grok-1",
+          flush=True)
+    assert left < 2.0, left
+    grok_phase()
 
     fused_main = fused_results[("main", "bfloat16")]
     src = "src/repro_torch/kernels/msa/csrc/"

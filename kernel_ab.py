@@ -41,19 +41,20 @@ def run(tree: Path, out: Path) -> int:
     _build.build(("msa_fused", "msa_prefill", "msa_decode"))
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    fused_main, fused_decode, fused_small = cs.fused_cases()
-    split_prefill, split_decode, _ = cs.split_cases()
-    fused = {"main": fused_main, "decode": fused_decode, **fused_small}
+    fused_main, fused_decode, fused_small, fused_grok = cs.fused_cases()
+    split_prefill, split_decode, _, split_grok = cs.split_cases()
+    fused = {"main": fused_main, "decode": fused_decode,
+             "grok_g6": fused_grok, **fused_small}
     split = {("prefill", "main"): split_prefill,
              ("decode", "main"): split_decode,
              ("decode", "fused_decode_only"):
-                 cs._decode_only_as_split(fused_decode)}
+                 cs._decode_only_as_split(fused_decode), **split_grok}
     saved = {}
     for dtype_name in ("bfloat16", "float32"):
         for name, case in fused.items():
             kernel, _ = cs._fused_fns(case, dtype_name)
             saved[f"{name}/{dtype_name}"] = kernel().cpu()
-            if name in ("main", "decode"):
+            if name in ("main", "decode", "grok_g6"):
                 _timed("msa_fused", name, dtype_name, kernel)
         for (kind, name), case in split.items():
             kernel, _, _ = cs._split_fns(kind, case, dtype_name)

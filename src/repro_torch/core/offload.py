@@ -18,7 +18,7 @@ online prefetch path can restore K early while V streams on demand at
 admission (``k_early_prefetch``).
 
 **Quantized payloads**: host-resident halves are stored as int8 codes
-with a per-page-per-head scale (or fp8 via ml_dtypes), cutting the
+with a per-page-per-head scale (or fp8 codes), cutting the
 bytes every queued swap block carries ~4x (vs fp32; 2x vs bf16).  Two
 exactness regimes:
 
@@ -41,6 +41,20 @@ exactness regimes:
     (the scale is stored with the payload and remembered per chain
     hash) guarantees re-spills of restored content recover identical
     codes, so the error never compounds.
+
+**In the port** (the JAX package's module carries payloads in numpy's
+``ml_dtypes`` types, which the card's machine lacks):
+
+  * bf16 pool pages travel to the host as their int16 bit patterns,
+    which only the full-precision ("fp") wire format ships.  A quantizing
+    wire format gets float32 pages instead: the engine's ``swap_out``
+    converts bf16 to float32, which is exact, before it hands them out,
+    so :func:`quantize_half` always quantizes values, never bit patterns
+    (it refuses int16 input).
+  * fp8 codes are the uint8 bit patterns of ``float8_e4m3fn``, encoded by
+    :func:`f8_codes` (rounding and overflow as ``ml_dtypes``) and decoded
+    through ``torch.float8_e4m3fn``.  :func:`dequantize_half` returns a
+    CPU tensor in the pool's torch dtype.
 """
 from __future__ import annotations
 
@@ -50,6 +64,7 @@ from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 INT8_QMAX = 127.0
 
@@ -128,9 +143,9 @@ class OffloadConfig:
 class HostHalf:
     """One half (K or V) of a host-resident block.
 
-    ``data`` is the wire payload: an fp ndarray (``fmt="fp"``), int8
-    codes (``fmt="q8"``, with ``scale`` of shape (L, KH)), an fp8
-    ndarray (``fmt="f8"``), or None in discrete-event simulation —
+    ``data`` is the wire payload: the pool's bits (``fmt="fp"``; bf16 as
+    int16), int8 codes (``fmt="q8"``, with ``scale`` of shape (L, KH)),
+    uint8 fp8 codes (``fmt="f8"``), or None in discrete-event simulation —
     ``nbytes`` then carries the *configured* half size so byte
     accounting stays exact without materializing payloads.
 
@@ -218,20 +233,50 @@ def entry_from_wire(d: dict) -> HostEntry:
                      k=half_from_wire(d["k"]), v=half_from_wire(d["v"]))
 
 
-def _f8_dtype():
-    import ml_dtypes
-    return np.dtype(ml_dtypes.float8_e4m3fn)
+# |x| from which float8_e4m3fn rounds past its largest finite value, 448:
+# 464 lies half-way to the next step (480, the NaN code), so it rounds to
+# even (448), and anything above it overflows
+F8_OVERFLOW = 464.0
+
+
+def f8_codes(x: torch.Tensor) -> torch.Tensor:
+    """``float8_e4m3fn`` bit patterns (uint8) of ``x``, rounded to nearest
+    even as ``ml_dtypes`` rounds: a magnitude past :data:`F8_OVERFLOW` and
+    an infinity become NaN (0x7f with the sign of ``x``).  torch's own
+    cast saturates to ±448 there on some builds, so the overflow is set
+    here and the cast is trusted only below it."""
+    x32 = x.float()
+    codes = x32.to(torch.float8_e4m3fn).view(torch.uint8)
+    nan = (torch.signbit(x32).to(torch.uint8) << 7) | 0x7F
+    return torch.where(x32.abs() > F8_OVERFLOW, nan, codes)
+
+
+def f8_values(codes: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The values of ``float8_e4m3fn`` bit patterns (uint8) in ``dtype``
+    (exact for bf16, f16 and f32)."""
+    return codes.view(torch.float8_e4m3fn).to(dtype)
+
+
+def _float_values(arr: np.ndarray) -> np.ndarray:
+    if arr.dtype == np.int16:
+        raise TypeError("int16 is the bit carrier of bf16 pool pages; "
+                        "quantize their float32 values instead")
+    return arr
 
 
 def snap_to_grid_np(arr: np.ndarray, mode: str, scale: float) -> np.ndarray:
     """Host-side mirror of the engine's in-step snap (same rounding as
-    ``jnp.round``: half-to-even), used by tests to predict pool bytes."""
+    ``torch.round``: half-to-even; +0 where the rounding gives -0, as the
+    engine writes) on a float array, used by tests to predict pool
+    bytes."""
+    arr = _float_values(arr)
     if mode == "int8":
-        q = np.clip(np.round(arr.astype(np.float32) / scale),
-                    -INT8_QMAX, INT8_QMAX)
+        q = np.clip(np.round(arr.astype(np.float32) / np.float32(scale)),
+                    -INT8_QMAX, INT8_QMAX) + np.float32(0.0)
         return (q * np.float32(scale)).astype(arr.dtype)
     if mode == "fp8":
-        return arr.astype(_f8_dtype()).astype(arr.dtype)
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        return f8_values(f8_codes(t), t.dtype).numpy()
     return arr
 
 
@@ -239,15 +284,18 @@ def quantize_half(arr: np.ndarray, fmt: str, static_scale: float = 0.0,
                   scale: Optional[np.ndarray] = None) -> HostHalf:
     """Encode one (L, page, KH, D) half for the host tier.
 
-    ``fmt="q8"``: int8 codes + per-page-per-head (L, KH) f32 scale —
-    the given ``scale`` (requantization of previously restored
-    content), else the static grid scale when set (lossless mode), else
-    a fresh dynamic max-abs scale (lossy first spill)."""
+    ``fmt="fp"`` keeps the pool's own bits (bf16 as int16 patterns).
+    ``fmt="f8"``: uint8 ``float8_e4m3fn`` codes of a float array.
+    ``fmt="q8"``: int8 codes + per-page-per-head (L, KH) f32 scale of a
+    float array — the given ``scale`` (requantization of previously
+    restored content), else the static grid scale when set (lossless
+    mode), else a fresh dynamic max-abs scale (lossy first spill)."""
     if fmt == "fp":
         a = np.ascontiguousarray(arr)
         return HostHalf(data=a, scale=None, nbytes=a.nbytes, fmt="fp")
+    arr = _float_values(arr)
     if fmt == "f8":
-        codes = arr.astype(_f8_dtype())
+        codes = f8_codes(torch.from_numpy(np.ascontiguousarray(arr))).numpy()
         return HostHalf(data=codes, scale=None, nbytes=codes.nbytes,
                         fmt="f8")
     assert fmt == "q8", fmt
@@ -265,17 +313,24 @@ def quantize_half(arr: np.ndarray, fmt: str, static_scale: float = 0.0,
                     nbytes=codes.nbytes + scale.nbytes, fmt="q8")
 
 
-def dequantize_half(half: HostHalf, dtype) -> np.ndarray:
-    """Decode a wire half back to pool dtype (host-side path: eager
-    swap-in fallback and lossless-gated fp shipping).  The multiply
-    order matches the device dequant in ``apply_swap_ins`` so both
-    reproduce identical bytes."""
-    if half.fmt == "fp":
-        return half.data
+def dequantize_half(half: HostHalf, dtype: torch.dtype) -> torch.Tensor:
+    """Decode a wire half back to the pool's ``dtype``, as a CPU tensor
+    (host-side path: the eager swap-in).  The multiply order matches the
+    device dequant in ``apply_swap_ins`` so both reproduce identical
+    bytes."""
+    data = torch.from_numpy(np.ascontiguousarray(half.data))
     if half.fmt == "f8":
-        return half.data.astype(dtype)
-    out = half.data.astype(np.float32) * half.scale[:, None, :, None]
-    return out.astype(dtype)
+        return f8_values(data, dtype)
+    if half.fmt == "q8":
+        scale = torch.from_numpy(np.ascontiguousarray(half.scale))
+        return (data.float() * scale[:, None, :, None]).to(dtype)
+    assert half.fmt == "fp", half.fmt
+    if dtype == torch.bfloat16 and data.dtype == torch.int16:
+        data = data.view(torch.bfloat16)
+    if data.dtype != dtype:
+        raise TypeError(f"host payload dtype {data.dtype} != pool dtype "
+                        f"{dtype}")
+    return data
 
 
 class ScaleCache:

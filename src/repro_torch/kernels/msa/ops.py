@@ -94,14 +94,30 @@ def apply_page_copies(k_pools: torch.Tensor, v_pools: torch.Tensor,
     v_pools[:, dst] = v_pools[:, src]
 
 
+def _dequant_payload(payload: torch.Tensor, scale, dtype) -> torch.Tensor:
+    """In-step dequantization of a (L, S, page, KH, D) swap payload.  int8
+    codes carry a per-page-per-head (L, S, KH) f32 scale; fp8 payloads
+    (``float8_e4m3fn``) and fp payloads just cast.  The f32 multiply keeps
+    the host-side ``offload.dequantize_half`` operand order, so eager and
+    in-step swap-ins reproduce identical pool bytes."""
+    if scale is not None:
+        return (payload.float() * scale[:, :, None, :, None]).to(dtype)
+    return payload.to(dtype)
+
+
 def apply_swap_ins(k_pools: torch.Tensor, v_pools: torch.Tensor,
                    swap_k_dst: torch.Tensor, swap_v_dst: torch.Tensor,
-                   swap_k: torch.Tensor, swap_v: torch.Tensor) -> None:
-    """Host-tier swap-ins of full-precision ("fp") payloads: scatter
-    (L, S, page, KH, D) halves into their pool pages in place; padding
-    destinations (== P) land in the drop page.  K and V carry independent
-    destination buckets, so a V-only swap-in ships no K payload."""
+                   swap_k: torch.Tensor, swap_v: torch.Tensor,
+                   swap_k_scale=None, swap_v_scale=None) -> None:
+    """Host-tier swap-ins: scatter (L, S, page, KH, D) halves into their
+    pool pages in place; padding destinations (== P) land in the drop
+    page.  K and V carry independent destination buckets, so a V-only
+    swap-in ships no K payload.  Quantized payloads (int8 codes + scale,
+    or fp8) dequantize here, on the device: the host->device copy carried
+    the compressed bytes."""
     if swap_k_dst.shape[0] > 0:
-        k_pools[:, swap_k_dst.long()] = swap_k.to(k_pools.dtype)
+        k_pools[:, swap_k_dst.long()] = _dequant_payload(
+            swap_k, swap_k_scale, k_pools.dtype)
     if swap_v_dst.shape[0] > 0:
-        v_pools[:, swap_v_dst.long()] = swap_v.to(v_pools.dtype)
+        v_pools[:, swap_v_dst.long()] = _dequant_payload(
+            swap_v, swap_v_scale, v_pools.dtype)

@@ -40,9 +40,13 @@ swap payloads.  Copy-on-write page forks and host-tier swap-ins are
 queued and folded into the step as padded index arrays; overflow past
 the static buckets goes through the eager paths.
 
-Later slices of the port bring quantized swap payloads and pool
-snapping, MoE, and sharded serving; each raises ``NotImplementedError``
-here.
+Quantized offload: the host-tier swap payloads may travel as int8 codes
+with per-page-per-head scales ("q8") or fp8 codes ("f8") and dequantize
+on the device inside the step, and the KV writes may be snapped to the
+offload grid (``snap``), which makes the quantized round trip exact.
+The MLP sublayer of a MoE model runs ``moe_ffn_local`` over the
+reference's capacity layout.  Sharded serving comes with a later slice
+of the port.
 """
 from __future__ import annotations
 
@@ -55,7 +59,8 @@ import torch
 
 from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.offload import HostHalf
+from repro_torch.core.offload import (HostHalf, dequantize_half, f8_codes,
+                                      f8_values)
 from repro_torch.kernels.msa import (
     UNIT_FIELDS,
     WL_FIELDS,
@@ -69,7 +74,8 @@ from repro_torch.kernels.msa import (
     pad_worklist,
     write_kv_pages,
 )
-from repro_torch.models.layers import apply_rope, rms_norm, swiglu_mlp
+from repro_torch.models.layers import (apply_rope, moe_ffn_local, rms_norm,
+                                       swiglu_mlp)
 from repro_torch.models.model import _layer_windows
 from repro_torch.serving.scheduler import StepPlan
 
@@ -201,31 +207,30 @@ class EngineConfig:
     # back to the eager paths.  0 routes every op of that kind eagerly.
     max_instep_copies: int = 8     # COW forks per step
     max_instep_swaps: int = 4      # host-tier swap-ins per step
-    # host-tier swap wire format and write-time pool snap; only the
-    # lossless defaults ("fp", "off") are served by this slice
+    # wire format of the host-tier swap payloads: "fp" ships pool-dtype
+    # pages; "q8" int8 codes + a per-page-per-head f32 scale; "f8"
+    # float8_e4m3fn codes; quantized payloads dequantize inside the step.
+    # Must match the block manager's OffloadConfig.wire_format (the server
+    # wires both).
     swap_payload: str = "fp"
+    # KV pool grid snap applied to k_new/v_new at write time, inside the
+    # step: "int8" rounds to the static snap_scale grid, "fp8" through
+    # float8.  Every pool value is then on the grid from the instant it
+    # exists, so quantizing a page at spill time recovers its codes and
+    # the swap-in reproduces the pool bytes bit for bit.
     snap: str = "off"
     snap_scale: float = 0.0
 
 
 def _host_array(t: torch.Tensor) -> np.ndarray:
-    """Device tensor -> numpy, bit for bit.  numpy has no bfloat16, so
-    bf16 pages travel as their raw 16-bit patterns (int16);
-    :func:`_device_tensor` reverses it."""
-    t = t.cpu()
+    """Device tensor -> a numpy copy, bit for bit (a copy on the CPU too,
+    where ``.cpu()`` would hand out a view of the pool that the next step
+    overwrites).  numpy has no bfloat16, so bf16 pages travel as their raw
+    16-bit patterns (int16); ``offload.dequantize_half`` reverses it."""
+    t = t.to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy()
     return t.numpy()
-
-
-def _device_tensor(a: np.ndarray, dtype: torch.dtype,
-                   device: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if dtype == torch.bfloat16 and t.dtype == torch.int16:
-        t = t.view(torch.bfloat16)
-    if t.dtype != dtype:
-        raise TypeError(f"host payload dtype {t.dtype} != pool dtype {dtype}")
-    return t.to(device)
 
 
 def _host_npdtype(dtype: torch.dtype) -> np.dtype:
@@ -270,19 +275,20 @@ class StepHandle:
 class Engine:
     def __init__(self, cfg: ModelConfig, ecfg: EngineConfig, params,
                  device="cuda"):
-        if cfg.family == "moe" or cfg.moe is not None:
-            raise NotImplementedError(
-                "MoE serving comes with the MoE slice of the port")
-        if cfg.family not in ("dense", "vlm") or cfg.enc_dec:
+        if cfg.family not in ("dense", "moe", "vlm") or cfg.enc_dec:
             raise ValueError(f"the engine serves decoder-only token LMs, "
                              f"not family {cfg.family!r}")
         if ecfg.attn_mode not in ("fused", "split"):
             raise ValueError(f"attn_mode {ecfg.attn_mode!r} is neither "
                              "'fused' nor 'split'")
-        if ecfg.swap_payload != "fp" or ecfg.snap != "off":
-            raise NotImplementedError(
-                "quantized swap payloads and pool snapping come with the "
-                "quantized-offload slice of the port")
+        if ecfg.swap_payload not in ("fp", "q8", "f8"):
+            raise ValueError(f"swap_payload {ecfg.swap_payload!r} is not "
+                             "'fp', 'q8' or 'f8'")
+        if ecfg.snap not in ("off", "int8", "fp8"):
+            raise ValueError(f"snap {ecfg.snap!r} is not 'off', 'int8' or "
+                             "'fp8'")
+        if ecfg.snap == "int8" and not ecfg.snap_scale > 0.0:
+            raise ValueError("snap='int8' needs snap_scale > 0")
         self.cfg = cfg
         self.ecfg = ecfg
         self.device = resolve_device(device)
@@ -291,7 +297,18 @@ class Engine:
                              f"the engine on {self.device}")
         self.params = params
         self.dtype = torch_dtype(cfg.dtype)
-        self._host_npdt = _host_npdtype(self.dtype)
+        self._payload_fmt = ecfg.swap_payload
+        # host dtype of a swap payload and its dtype on the device: the
+        # pool's bits (bf16 as int16), int8 codes, or fp8 codes as uint8
+        self._payload_npdt = {"fp": _host_npdtype(self.dtype),
+                              "q8": np.dtype(np.int8),
+                              "f8": np.dtype(np.uint8)}[self._payload_fmt]
+        self._payload_dtype = {"fp": self.dtype, "q8": torch.int8,
+                               "f8": torch.float8_e4m3fn}[self._payload_fmt]
+        # the snap grid's scale as a device tensor: a division by a CPU
+        # scalar may run as a multiplication by its reciprocal on the card
+        self._snap_scale = torch.tensor(ecfg.snap_scale, dtype=torch.float32,
+                                        device=self.device)
         L = cfg.n_layers
         # page num_pages (one past the block manager's slots) is the drop
         # page: padding KV writes and padding swap-ins land there, and no
@@ -312,11 +329,15 @@ class Engine:
         # independently.  Entries are (slot, HostHalf).
         self._pending_swap_k: List[Tuple[int, HostHalf]] = []
         self._pending_swap_v: List[Tuple[int, HostHalf]] = []
-        # device-resident zero payload reused on swap-free steps (their
-        # destinations are all padded into the drop page anyway)
+        # device-resident zero payload (in the wire dtype) and q8 scale
+        # reused on swap-free steps (their destinations are all padded
+        # into the drop page anyway)
         self._zero_swap = torch.zeros(
             (L, ecfg.max_instep_swaps, ecfg.page_size, cfg.n_kv_heads,
-             cfg.head_dim), dtype=self.dtype, device=self.device)
+             cfg.head_dim), dtype=self._payload_dtype, device=self.device)
+        self._zero_scale = (torch.zeros(
+            (L, ecfg.max_instep_swaps, cfg.n_kv_heads), dtype=torch.float32,
+            device=self.device) if self._payload_fmt == "q8" else None)
         self.n_seqs = ecfg.max_prefills + ecfg.max_decodes
         self.t_max = ecfg.max_prefills * ecfg.max_chunk + ecfg.max_decodes
         self.token_buckets, self.np_buckets = derive_bucket_lattice(ecfg)
@@ -401,7 +422,8 @@ class Engine:
         # round may use as its donor), then copies; both precede the KV
         # writes and attention that read those pages
         apply_swap_ins(self.k_pools, self.v_pools, inp["swap_k_dst"],
-                       inp["swap_v_dst"], inp["swap_k"], inp["swap_v"])
+                       inp["swap_v_dst"], inp["swap_k"], inp["swap_v"],
+                       inp["swap_k_scale"], inp["swap_v_scale"])
         apply_page_copies(self.k_pools, self.v_pools, inp["copy_src"],
                           inp["copy_dst"])
         if n_iter > 1:
@@ -439,8 +461,9 @@ class Engine:
     def _layers(self, params, tokens, pos, write_slot, write_off, valid,
                 attend):
         """Embed ``tokens`` and run every layer over the stream: norm ->
-        q/k/v -> rope -> KV write -> ``attend(l, q, k_pool, v_pool)`` ->
-        wo -> MLP.  Returns the residual before the final norm."""
+        q/k/v -> rope -> snap -> KV write -> ``attend(l, q, k_pool,
+        v_pool)`` -> wo -> MLP (or MoE).  Returns the residual before the
+        final norm."""
         cfg = self.cfg
         blocks = params["blocks"]
         x = params["embed"][tokens.long()]               # (T, d)
@@ -455,15 +478,50 @@ class Engine:
                 q = apply_rope(q, pos, cfg.rope_theta)
                 k_new = apply_rope(k_new, pos, cfg.rope_theta)
             kp, vp = self.k_pools[l], self.v_pools[l]
-            write_kv_pages(kp, vp, k_new, v_new, write_slot, write_off,
-                           valid)
+            write_kv_pages(kp, vp, self._snap(k_new), self._snap(v_new),
+                           write_slot, write_off, valid)
             attn = attend(l, q, kp, vp)
             x = x + attn.reshape(T, H * hd) @ blocks["wo"][l].reshape(
                 H * hd, d)
-            h2 = rms_norm(x, blocks["mlp_norm"][l], cfg.norm_eps)
-            x = x + swiglu_mlp(h2, blocks["w1"][l], blocks["w3"][l],
-                               blocks["w2"][l])
+            x = self._mlp_sublayer(x, blocks, l)
         return x
+
+    def _snap(self, x: torch.Tensor) -> torch.Tensor:
+        """Snap freshly computed K/V to the offload quantization grid at
+        write time: "int8" rounds to the static ``snap_scale`` grid
+        (half-to-even, clipped to ±127 steps), "fp8" rounds through
+        ``float8_e4m3fn``.  Pool values are then on the grid from the
+        instant they exist, so spill-time quantization recovers the exact
+        codes and the swap-in reproduces the pool bytes bit for bit; a
+        recompute runs this same write path and reproduces them too.  The
+        int8 codes have no -0, so the int8 grid writes +0 where the JAX
+        engine writes -0 (the same value), or a restored page would differ
+        from its spilled self in the sign of its zeros."""
+        mode = self.ecfg.snap
+        if mode == "off":
+            return x
+        if mode == "int8":
+            q = torch.clamp(torch.round(x.float() / self._snap_scale),
+                            -127.0, 127.0)
+            q = q.masked_fill(q == 0, 0.0)
+            return (q * self._snap_scale).to(x.dtype)
+        return f8_values(f8_codes(x), x.dtype)
+
+    def _mlp_sublayer(self, x, blocks, l: int) -> torch.Tensor:
+        """Layer ``l``'s norm and MLP (SwiGLU, or the MoE over the
+        reference's capacity layout), added to the residual ``x``."""
+        cfg = self.cfg
+        h2 = rms_norm(x, blocks["mlp_norm"][l], cfg.norm_eps)
+        if cfg.moe is not None:
+            m = cfg.moe
+            y = moe_ffn_local(h2, blocks["router"][l], blocks["we1"][l],
+                              blocks["we3"][l], blocks["we2"][l], m.top_k,
+                              m.capacity_factor, dropless=m.dropless,
+                              expert_split=m.expert_split)
+        else:
+            y = swiglu_mlp(h2, blocks["w1"][l], blocks["w3"][l],
+                           blocks["w2"][l])
+        return x + y
 
     def _fused_pass(self, params, tokens, pos, valid, write_slot, write_off,
                     ctx, bt, seq_ids, worklist, units, t_bucket: int):
@@ -578,10 +636,10 @@ class Engine:
     def _pack_inputs(self, buf: np.ndarray, views: Dict[str, np.ndarray]
                      ) -> Dict[str, torch.Tensor]:
         """Fold the queued page ops into the packed buffer and move it to
-        the device in one copy, beside the two swap payloads."""
+        the device in one copy, beside the two swap payloads and, in the
+        q8 wire format, their scales (None otherwise)."""
         ops = self._fold_page_ops(views)
-        return {"pack": torch.from_numpy(buf).to(self.device),
-                "swap_k": ops["swap_k"], "swap_v": ops["swap_v"]}
+        return {"pack": torch.from_numpy(buf).to(self.device), **ops}
 
     def _unpack(self, inp: Dict[str, torch.Tensor], t_bucket: int,
                 np_bucket: int, w_bucket: int,
@@ -605,8 +663,8 @@ class Engine:
             NP = e.max_blocks_per_seq
             out["bt_pre"] = out["bt_pre"].view(e.max_prefills, NP)
             out["bt_dec"] = out["bt_dec"].view(e.max_decodes, NP)
-        out["swap_k"] = inp["swap_k"]
-        out["swap_v"] = inp["swap_v"]
+        for name in ("swap_k", "swap_v", "swap_k_scale", "swap_v_scale"):
+            out[name] = inp[name]
         return out
 
     # ------------------------------------------------------------------
@@ -846,11 +904,13 @@ class Engine:
             copy_src[j] = src
             copy_dst[j] = dst
 
-        out: Dict[str, torch.Tensor] = {}
         kq, self._pending_swap_k = self._pending_swap_k, []
         vq, self._pending_swap_v = self._pending_swap_v, []
-        out["swap_k"] = self._fold_swap_half("k", kq, views)
-        out["swap_v"] = self._fold_swap_half("v", vq, views)
+        out: Dict[str, Optional[torch.Tensor]] = {}
+        out["swap_k"], out["swap_k_scale"] = self._fold_swap_half(
+            "k", kq, views)
+        out["swap_v"], out["swap_v_scale"] = self._fold_swap_half(
+            "v", vq, views)
         return out
 
     def _flush_swaps_eager(self) -> None:
@@ -864,10 +924,13 @@ class Engine:
         for slot, half in vq:
             self.swap_in(slot, (None, half))
 
-    def _fold_swap_half(self, name: str, queue, views) -> torch.Tensor:
+    def _fold_swap_half(self, name: str, queue, views
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Fold one half's queued swap-ins (K or V) into its padded
-        destination bucket and return its payload buffer on the device.
-        ``swap_bytes_shipped`` counts the host->device payload bytes."""
+        destination bucket and return its payload buffer on the device,
+        with its (L, S, KH) f32 scales in the q8 wire format (else None).
+        ``swap_bytes_shipped`` counts the host->device payload bytes,
+        scales included."""
         e = self.ecfg
         S, P = e.max_instep_swaps, e.num_pages
         if len(queue) > S:
@@ -882,16 +945,26 @@ class Engine:
         if not queue:
             # swap-free half (the common case): every destination is the
             # drop page, so reuse the device-resident zero payload
-            return self._zero_swap
+            return self._zero_swap, self._zero_scale
         cfg = self.cfg
         buf = np.zeros((cfg.n_layers, S, e.page_size, cfg.n_kv_heads,
-                        cfg.head_dim), self._host_npdt)
+                        cfg.head_dim), self._payload_npdt)
+        scale = (np.zeros((cfg.n_layers, S, cfg.n_kv_heads), np.float32)
+                 if self._payload_fmt == "q8" else None)
         for j, (slot, half) in enumerate(queue):
-            assert half.fmt == "fp", half.fmt
+            assert half.fmt == self._payload_fmt, (half.fmt,
+                                                   self._payload_fmt)
             dst[j] = slot
             buf[:, j] = half.data
+            if scale is not None:
+                scale[:, j] = half.scale
         self.swap_bytes_shipped += buf.nbytes
-        return _device_tensor(buf, self.dtype, self.device)
+        payload = torch.from_numpy(buf).view(self._payload_dtype)
+        if scale is None:
+            return payload.to(self.device), None
+        self.swap_bytes_shipped += scale.nbytes
+        return (payload.to(self.device),
+                torch.from_numpy(scale).to(self.device))
 
     # -- copy-on-write page forks (cross-request prefix sharing) --------
     def queue_copies(self, pairs: List[Tuple[int, int]]) -> None:
@@ -928,20 +1001,28 @@ class Engine:
 
         Returns ``(k, v)``: each the half's payload (a queued
         :class:`HostHalf` or a raw pool ndarray) or ``None`` when not
-        requested.  The device read waits for the step in flight, so no
-        stale page is handed out.  A swap-in still QUEUED for this slot
+        requested.  A raw page carries the pool's bits (bf16 as int16) for
+        the fp wire format, and its float32 values (exact from bf16) for a
+        quantizing one, which the block manager quantizes.  The device
+        read waits for the step in flight, so no stale page is handed
+        out.  A swap-in still QUEUED for this slot
         is returned directly and removed from both queues: the queued
         payload IS the block's content, and letting it land later would
         clobber whatever the reallocated page holds by then."""
         kh = self._pop_queued(self._pending_swap_k, slot)
         vh = self._pop_queued(self._pending_swap_v, slot)
+
+        def read(pools):
+            page = pools[:, slot]
+            if self._payload_fmt != "fp":
+                page = page.float()
+            return _host_array(page)
+
         out_k = out_v = None
         if need_k:
-            out_k = kh if kh is not None \
-                else _host_array(self.k_pools[:, slot])
+            out_k = kh if kh is not None else read(self.k_pools)
         if need_v:
-            out_v = vh if vh is not None \
-                else _host_array(self.v_pools[:, slot])
+            out_v = vh if vh is not None else read(self.v_pools)
         return out_k, out_v
 
     @staticmethod
@@ -968,15 +1049,14 @@ class Engine:
 
     def swap_in(self, slot: int, payload) -> None:
         """Eager host -> device restore (overflow / bucket-disabled
-        path) of full-precision halves."""
+        path).  Quantized halves dequantize on the host with the same
+        operand order as the in-step ``_dequant_payload``, so both paths
+        land the same pool bytes."""
         kh, vh = payload
         for half, pools in ((kh, self.k_pools), (vh, self.v_pools)):
-            if half is None:
-                continue
-            half = self._as_half(half)
-            assert half.fmt == "fp", half.fmt
-            pools[:, slot] = _device_tensor(half.data, self.dtype,
-                                            self.device)
+            if half is not None:
+                pools[:, slot] = dequantize_half(
+                    self._as_half(half), self.dtype).to(self.device)
 
     # ------------------------------------------------------------------
     def perf_counters(self) -> Dict[str, object]:

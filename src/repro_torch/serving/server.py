@@ -24,7 +24,7 @@ from __future__ import annotations
 import math
 import time
 from collections import deque
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -263,9 +263,13 @@ class AsymCacheServer:
                 max_decodes=scfg.scheduler.max_decodes,
                 attn_mode=scfg.attn_mode)
             if scfg.offload.quant != "off":
-                raise NotImplementedError(
-                    "quantized swap payloads come with the quantized-"
-                    "offload slice of the port")
+                # quantized payload serving: the engine snaps KV writes to
+                # the grid (lossless mode) and dequantizes wire payloads
+                # inside the step
+                ecfg = replace(
+                    ecfg, swap_payload=scfg.offload.wire_format,
+                    snap=scfg.offload.snap,
+                    snap_scale=scfg.offload.clip / 127.0)
             if scfg.n_shards > 1:
                 raise NotImplementedError(
                     "sharded serving (n_shards > 1) comes with the "

@@ -16,7 +16,9 @@ them, then with contexts of more than 32 pages, so that page ranges are
 cut into pieces and merged (head dims 16-256, pages 8-64, GQA groups of
 1-8 heads, a window whose first visible key lies in a later piece), each
 at the wrapper's piece size (launched twice for the same bits) and at a
-smaller one.
+smaller one.  Last, the MoE engine (Grok-1 smoke) on the card against
+the CPU, and quantized offload on the card against its full-precision-
+payload control arm.
 
 Marked ``cuda``; each test skips without a card.  Run on the card with
 ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.  Imports no JAX,
@@ -656,3 +658,75 @@ def test_multi_token_engine_on_card_matches_cpu(dev):
     _same_results(wg, wc)
     for a, b in zip(wg, wc):
         assert a.sampled_ids == b.sampled_ids
+
+
+def test_moe_engine_on_card_matches_cpu(dev):
+    """The Grok-1 smoke model (MoE, 4 experts, top 2, dropless, softcap
+    30) served on the card and on the CPU, fused layout, float32: the same
+    greedy tokens and step counts, first logits within 1e-4 of their
+    scale."""
+    from repro_torch.configs import get_smoke_config, scaled_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import (AsymCacheServer, EngineConfig,
+                                     SchedulerConfig, ServerConfig,
+                                     WorkloadConfig, multi_turn_workload)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = scaled_config(get_smoke_config("grok-1-314b"), dtype="float32")
+    cpu = init_params(cfg, seed=0, device="cpu")
+    gpu = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
+               else v.to(dev)) for k, v in cpu.items()}
+    runs = []
+    for params, device in ((cpu, "cpu"), (gpu, dev)):
+        scfg = ServerConfig(num_blocks=40, block_size=16, clock="model",
+                            host_blocks=16, scheduler=SchedulerConfig(
+                                token_budget=128, max_chunk=64,
+                                max_prefills=2, max_decodes=8))
+        ecfg = EngineConfig(num_pages=40, page_size=16, max_prefills=2,
+                            max_chunk=64, max_decodes=8)
+        wl = multi_turn_workload(WorkloadConfig(
+            n_sessions=3, turns_per_session=(2, 3), first_ctx_len=(96, 180),
+            output_len=(12, 24), qps=1.0, vocab=256, seed=3))
+        srv = AsymCacheServer(cfg, params, scfg, ecfg=ecfg, device=device)
+        before = msa_fused_cuda.launches
+        res = srv.run(wl)
+        runs.append((wl, res, msa_fused_cuda.launches - before))
+    (wc, rc, lc), (wg, rg, lg) = runs
+    assert lc == 0 and lg == cfg.n_layers * rg["steps"]
+    assert rg["steps"] == rc["steps"] and rg["evictions"] == rc["evictions"]
+    _same_results(wg, wc)
+
+
+@pytest.mark.parametrize("quant", ["int8", "fp8"])
+def test_quantized_offload_on_card_is_bit_identical(dev, quant):
+    """On the card, bf16 smoke model: serving with quantized swap payloads
+    gives the same bits as its full-precision-payload control arm (the
+    pool snapped to the same grid in both), with the same swap-ins and at
+    most 0.51x its swap bytes."""
+    from repro_torch.configs import get_smoke_config, scaled_config
+    from repro_torch.core import OffloadConfig
+    from repro_torch.models import init_params
+    from repro_torch.serving import (AsymCacheServer, SchedulerConfig,
+                                     ServerConfig, WorkloadConfig,
+                                     multi_turn_workload)
+    cfg = scaled_config(get_smoke_config("llama31-8b"), dtype="bfloat16")
+    params = init_params(cfg, seed=0, device=dev)
+    runs = []
+    for payload_fp in (True, False):
+        scfg = ServerConfig(
+            num_blocks=40, block_size=16, clock="model", host_blocks=128,
+            offload=OffloadConfig(quant=quant, payload_fp=payload_fp,
+                                  retain_host=True),
+            scheduler=SchedulerConfig(token_budget=128, max_chunk=64,
+                                      max_prefills=2, max_decodes=8))
+        wl = multi_turn_workload(WorkloadConfig(
+            n_sessions=3, turns_per_session=(2, 3), first_ctx_len=(96, 200),
+            output_len=(12, 24), qps=1.0, seed=0))
+        srv = AsymCacheServer(cfg, params, scfg, device=dev)
+        runs.append((wl, srv.run(wl), srv.engine.swap_bytes_shipped))
+    (wa, ra, ba), (wb, rb, bb) = runs
+    assert ra["swap_ins"] > 0 and rb["swap_ins"] == ra["swap_ins"]
+    for a, b in zip(wa, wb):
+        assert a.generated == b.generated
+        assert a.sampled_ids == b.sampled_ids
+        assert np.array_equal(a.first_logits, b.first_logits)
+    assert 0 < bb <= 0.51 * ba
