@@ -27,7 +27,20 @@ Phases:
        (each timed and held to the plain version); every split case is
        launched twice and must give the same bits;
      - each kernel once more at Grok-1's attention shapes (H 48, KH 8, a
-       GQA group of 6, D 128, softcap 30), timed beside its bound.
+       GQA group of 6, D 128, softcap 30), timed beside its bound;
+     - the fused kernel's (o, lse) mode (sharded serving's per-shard
+       partial): one shard's half of a mixed step striped over 2 shards
+       (timed), and small cases with a window shorter than a page, a
+       softcap, one-page sequences (no local page on the other shard) and
+       4 shards, each shard held to ``msa_fused_partial_ref`` (o and lse)
+       with the same bits twice, the shards' partials merged against the
+       full fused kernel;
+     - a memory check of the small cases in child processes, under
+       ``compute-sanitizer --tool memcheck`` where the tool supports the
+       device (it refuses the chip machines' cards, and the script says
+       so), and over a guard-zone allocator built here with ``nvcc``
+       (every tensor its own allocation between 64 KB guards of 0xFF):
+       no guard written, no NaN read, each kernel within tolerance.
      Kernel and plain version are timed with CUDA events (median of 20),
      each call queued behind a device sleep so that the events time the
      device alone, beside the bound; the kernels are timed once more from
@@ -62,9 +75,9 @@ Phases:
      step variant a bucket, and each turn's first logits match the dense
      reference; TTFT, TPOT and job latency.  The same scripts at k = 1 on
      the wall clock (TPOT beside k = 8), then at k = 1 and k = 8 on the
-     model clock: equal outputs and first sampled ids, the share of equal
-     ids, first logits within tolerance, fewer decode-only dispatches at
-     k = 8.  Last, one decode-only plan as one k = 8 dispatch against 8
+     model clock over the first 8 layers: equal outputs and first sampled
+     ids, the share of equal ids, first logits within tolerance, fewer
+     decode-only dispatches at k = 8.  Last, one decode-only plan as one k = 8 dispatch against 8
      single dispatches on the same pools: the same bits in ids and pools.
   6. Quantized offload, same model cut to its first 8 layers: phase 5's
      agentic scripts at k = 8 on the model clock with
@@ -86,9 +99,19 @@ Phases:
      then fused against split on the model clock (the same schedule and
      first sampled ids, the share of equal ids), and a profile of a short
      fused run as phase 4 takes one.
+  8. (before 7) Serve phase 3b's workload sharded over 2 shards, both on
+     this card (``ServerConfig(n_shards=2, shard_devices=["cuda:0"] *
+     2)``: page-sharded pools, the weights split by heads, ffn and vocab,
+     each shard's attention in the (o, lse) mode, the partials merged), on
+     the model clock, against the single-device fused run: the same
+     schedule and first sampled ids, the share of equal ids, first logits
+     within tolerance of it and of the dense reference, one (o, lse)
+     launch a shard a layer a step, each shard's weight bytes; then over
+     4 shards on the first 3 sessions; a profile of one request at N = 2.
 
-Prints the card line again, the kernel table (all three kernels) as a
-JSON line, and, last, ``{"ok": true, "device": {...}}``.  Any failure
+Prints the card line again, the (o, lse) mode's row and the kernel table
+(all three kernels) as JSON lines, and, last, ``{"ok": true, "device":
+{...}}``.  Any failure
 raises (non-zero exit).  Each phase is a function; ``main`` runs them
 all in order.
 Needs a CUDA device and the repository's ``src/`` beside this file.
@@ -167,11 +190,13 @@ def _median_ms(fn, iters: int = 20, warmup: int = 3,
 # ---------------------------------------------------------------------------
 
 def _step_case(rng, *, H, KH, D, page, prefills, decode_ctx, t_bucket,
-               q_tile, window=0, softcap=0.0):
+               q_tile, window=0, softcap=0.0, shards=1):
     """A mixed varlen step in the engine's layout: prefill chunks (each
     ``(ctx, [(lo, hi), ...])`` position runs) packed first, then decode
     rows, then bucket slack.  Every sequence owns disjoint, shuffled
-    (non-contiguous) pool pages."""
+    (non-contiguous) pool pages.  ``shards > 1``: the pool is ``shards``
+    runs of ``p_loc`` pages and page j of sequence s lies on shard
+    (s + j) % shards, as the block manager stripes a sharded pool."""
     from repro_torch.kernels.msa import build_units, build_worklist, \
         pad_worklist
     ctxs = [c for c, _ in prefills] + list(decode_ctx)
@@ -181,13 +206,24 @@ def _step_case(rng, *, H, KH, D, page, prefills, decode_ctx, t_bucket,
     n = len(ctxs)
     n_pages = [-(-c // page) for c in ctxs]
     NP = max(n_pages)
-    P = sum(n_pages) + 1
-    perm = rng.permutation(P)
     bt = np.zeros((n, NP), np.int32)
-    off = 0
-    for s, k in enumerate(n_pages):
-        bt[s, :k] = perm[off:off + k]
-        off += k
+    p_loc = 0
+    if shards == 1:
+        P = sum(n_pages) + 1
+        perm = rng.permutation(P)
+        off = 0
+        for s, k in enumerate(n_pages):
+            bt[s, :k] = perm[off:off + k]
+            off += k
+    else:
+        owner = [[(s + j) % shards for j in range(k)]
+                 for s, k in enumerate(n_pages)]
+        p_loc = max(sum(o.count(i) for o in owner)
+                    for i in range(shards)) + 1
+        P = shards * p_loc
+        local = [iter(rng.permutation(p_loc)) for _ in range(shards)]
+        for s, o in enumerate(owner):
+            bt[s, :len(o)] = [i * p_loc + next(local[i]) for i in o]
     q_len = np.asarray([len(r) for r in runs], np.int32)
     q_start = np.concatenate([[0], np.cumsum(q_len)[:-1]]).astype(np.int32)
     real = int(q_len.sum())
@@ -220,8 +256,8 @@ def _step_case(rng, *, H, KH, D, page, prefills, decode_ctx, t_bucket,
         k=rng.standard_normal((P, page, KH, D)).astype(np.float32),
         v=rng.standard_normal((P, page, KH, D)).astype(np.float32),
         bt=bt, ctx=ctx, q_pos=q_pos, seq_ids=seq_ids, valid=valid,
-        wl=wl, units=units,
-        real=real, window=window, softcap=softcap, q_tile=tq,
+        wl=wl, units=units, q_start=q_start, q_len=q_len, shards=shards,
+        p_loc=p_loc, real=real, window=window, softcap=softcap, q_tile=tq,
         pages_read=pages_read, flops=4.0 * float(keys.sum()) * H * D)
 
 
@@ -354,6 +390,210 @@ def kernel_phase():
                 and res["same_bits_twice"] and res["max_abs_err"] <= tol):
             raise AssertionError(f"msa_fused kernel disagrees: {line}")
     return results, decode
+
+
+# ---------------------------------------------------------------------------
+# phase 2, sharded serving: the fused kernel's (o, lse) mode
+# ---------------------------------------------------------------------------
+
+def _shard_view(case, shard):
+    """Shard ``shard``'s part of a striped case (``_step_case(...,
+    shards=N)``): its pool pages, its table of local slots and which
+    entries are local, its work-list (``build_worklist(...,
+    page_valid=...)``) and units, the pages it reads and the operations
+    of the keys its rows see."""
+    from repro_torch.kernels.msa import build_units, build_worklist, \
+        pad_worklist
+    p_loc, bt, page = case["p_loc"], case["bt"], case["k"].shape[1]
+    lo = shard * p_loc
+    page_valid = (bt >= lo) & (bt < lo + p_loc)
+    table = np.where(page_valid, bt - lo, 0).astype(np.int32)
+    n, T, tq = bt.shape[0], case["q"].shape[0], case["q_tile"]
+    n_tiles = -(-T // tq)
+    wl, count = build_worklist(
+        case["q_start"], case["q_len"], case["ctx"], table, case["q_pos"],
+        page=page, q_tile=tq, n_tiles=n_tiles, window=0,
+        page_valid=page_valid)
+    wl = pad_worklist(wl, 1 << (count - 1).bit_length(), sentinel_seq=n)
+    units = build_units(wl, case["q_start"], case["q_len"], n_rows=T,
+                        q_tile=tq, n_tiles=n_tiles)
+    real_items = wl["wl_seq"][:count] < n
+    # keys each real row sees on this shard's pages
+    keys = 0
+    for r in range(case["real"]):
+        s = case["seq_ids"][r]
+        hi = min(int(case["q_pos"][r]), int(case["ctx"][s]) - 1)
+        lo_k = max(0, hi - case["window"] + 1) if case["window"] else 0
+        kv = np.arange(lo_k, hi + 1)
+        keys += int(page_valid[s, kv // page].sum())
+    H, D = case["q"].shape[1:]
+    return dict(k=case["k"][lo:lo + p_loc], v=case["v"][lo:lo + p_loc],
+                bt=table, page_valid=page_valid, wl=wl, units=units,
+                pages_read=np.unique(wl["wl_slot"][:count][real_items]).size,
+                flops=4.0 * keys * H * D)
+
+
+def _partial_fns(case, view, dtype_name):
+    """The (o, lse) mode and its plain version on one shard's view, on the
+    card in ``dtype_name``."""
+    import torch
+    from repro_torch.kernels.msa import (UNIT_FIELDS, WL_FIELDS,
+                                         msa_fused_partial)
+    from repro_torch.kernels.msa.ref import msa_fused_partial_ref
+    dt = getattr(torch, dtype_name)
+    dev = torch.device("cuda")
+    f = {k: torch.from_numpy(np.asarray(case[k])).to(dev)
+         for k in ("ctx", "q_pos", "seq_ids", "valid")}
+    bt = torch.from_numpy(view["bt"]).to(dev)
+    pv = torch.from_numpy(view["page_valid"]).to(dev)
+    q = torch.from_numpy(case["q"]).to(dev, dt)
+    kp = torch.from_numpy(view["k"]).to(dev, dt)
+    vp = torch.from_numpy(view["v"]).to(dev, dt)
+    wl = tuple(torch.from_numpy(view["wl"][name]).to(dev)
+               for name in WL_FIELDS)
+    units = tuple(torch.from_numpy(view["units"][name]).to(dev)
+                  for name in UNIT_FIELDS)
+    args = (q, kp, vp, bt, f["ctx"], f["q_pos"], f["seq_ids"], f["valid"],
+            pv)
+    kw = dict(window=case["window"], softcap=case["softcap"])
+
+    def kernel():
+        return msa_fused_partial(*args, worklist=wl, units=units,
+                                 q_tile=case["q_tile"], **kw)
+
+    def plain():
+        return msa_fused_partial_ref(*args, **kw)
+
+    return kernel, plain
+
+
+# lse of a row with no visible key: NEG_INF, -0.7 * f32 max (the kernel's
+# float product and the plain version's double one may round a bit apart)
+_NO_KEY = -1e38
+
+
+def _run_partial_case(case, dtype_name, *, time_it=False):
+    """Every shard's (o, lse) against the plain version (o within the
+    tolerance, lse within it where a key was seen and NEG_INF on the same
+    rows where none was), the same bits twice, padding rows o = 0 and lse
+    NEG_INF; then the shards' partials merged (``lse_merge``) against the
+    full fused kernel and its plain version on the same step.  Times shard
+    0 beside its bound."""
+    import torch
+    from repro_torch.distributed import ShardGroup, lse_merge
+    out = {"shards": case["shards"], "max_abs_err": 0.0, "lse_err": 0.0,
+           "same_no_key_rows": True, "same_bits_twice": True,
+           "finite": True, "slack_zero": True, "no_key_rows": 0}
+    parts, lses = [], []
+    for i in range(case["shards"]):
+        view = _shard_view(case, i)
+        kernel, plain = _partial_fns(case, view, dtype_name)
+        (o, lse), (o2, lse2) = kernel(), kernel()
+        torch.cuda.synchronize()
+        wo, wlse = plain()
+        none = wlse <= _NO_KEY
+        out["max_abs_err"] = max(out["max_abs_err"],
+                                 float((o - wo).abs().max()))
+        out["lse_err"] = max(out["lse_err"], float(
+            (lse - wlse).abs()[~none].max()) if (~none).any() else 0.0)
+        out["same_no_key_rows"] &= bool(torch.equal(lse <= _NO_KEY, none))
+        out["no_key_rows"] += int(none.sum())
+        out["same_bits_twice"] &= bool(torch.equal(o, o2)
+                                       and torch.equal(lse, lse2))
+        out["finite"] &= bool(torch.isfinite(o).all()
+                              and torch.isfinite(lse).all())
+        out["slack_zero"] &= bool((o[case["real"]:] == 0).all()
+                                  and (lse[case["real"]:] <= _NO_KEY).all())
+        parts.append(o)
+        lses.append(lse)
+        if time_it and i == 0:
+            out["ms"] = _median_ms(kernel)
+            out["ms_with_enqueue"] = _median_ms(kernel, device_only=False)
+            out["plain_ms"] = _median_ms(plain)
+            T, H, D = o.shape
+            _, page, KH, _ = view["k"].shape
+            # K/V of the pages read and q in the input type, o and lse f32
+            item = torch.finfo(getattr(torch, dtype_name)).bits // 8
+            nbytes = (2 * view["pages_read"] * page * KH * D * item
+                      + T * H * D * item + T * H * (D + 1) * 4)
+            out.update(_bound(nbytes, view["flops"], dtype_name))
+        del wo, wlse
+    group = ShardGroup(["cuda"] * case["shards"])
+    merged = lse_merge(group, parts, lses)[0]
+    full, full_plain = _fused_fns(case, dtype_name)
+    got = full()
+    dt = got.dtype
+    out["merged_vs_kernel"] = float(
+        (merged.to(dt).float() - got.float()).abs().max())
+    out["merged_vs_plain"] = float(
+        (merged.to(dt).float() - full_plain().float()).abs().max())
+    return out
+
+
+def partial_cases():
+    """The (o, lse) mode's cases, from seed 1, striped over shards: half
+    of phase 2's mixed step (2 shards), and small cases with a window
+    shorter than a page (rows whose local keys are all masked), a softcap,
+    sequences of one page (no local page on the other shard), and 4
+    shards."""
+    from repro_torch.serving import EngineConfig
+    rng = np.random.default_rng(1)
+    llama = dict(H=32, KH=8, D=128, page=16)
+    q_tile = EngineConfig(num_pages=1).q_tile
+    main = _step_case(
+        rng, **llama, q_tile=q_tile, t_bucket=640, shards=2,
+        prefills=[(1536, [(256, 400), (1408, 1536)]),
+                  (2304, [(1000, 1100), (2100, 2304)])],
+        decode_ctx=rng.integers(64, 4097, size=32))
+    small = {
+        "window": _step_case(
+            rng, **llama, q_tile=32, t_bucket=96, window=12, shards=2,
+            prefills=[(900, [(100, 140), (870, 900)])],
+            decode_ctx=rng.integers(200, 1200, size=6)),
+        "softcap": _step_case(
+            rng, **llama, q_tile=8, t_bucket=72, softcap=30.0, shards=2,
+            prefills=[(500, [(0, 20), (480, 500)])],
+            decode_ctx=rng.integers(1, 700, size=8)),
+        "no_local_page": _step_case(
+            rng, **llama, q_tile=32, t_bucket=128, shards=2,
+            prefills=[(12, [(9, 12)])], decode_ctx=[5, 16, 9, 333]),
+        "four_shards": _step_case(
+            rng, **llama, q_tile=16, t_bucket=96, shards=4,
+            prefills=[(700, [(10, 40), (650, 700)])],
+            decode_ctx=rng.integers(1, 900, size=8)),
+    }
+    return main, small
+
+
+def partial_kernel_phase():
+    """The (o, lse) mode of the fused kernel against its plain version,
+    and the shards' merged partials against the full kernel."""
+    main, small = partial_cases()
+    results = {}
+    for dtype_name in ("bfloat16", "float32"):
+        results[("main", dtype_name)] = _run_partial_case(
+            main, dtype_name, time_it=True)
+        for name, case in small.items():
+            results[(name, dtype_name)] = _run_partial_case(case,
+                                                            dtype_name)
+    for (name, dtype_name), res in results.items():
+        tol = KERNEL_TOL[dtype_name]
+        line = {"kernel": "msa_fused_partial", "case": name,
+                "dtype": dtype_name, "tol": tol, **res}
+        print("kernel_check " + json.dumps(line), flush=True)
+        if not (res["finite"] and res["slack_zero"]
+                and res["same_bits_twice"] and res["same_no_key_rows"]
+                and res["max_abs_err"] <= tol and res["lse_err"] <= tol
+                and res["merged_vs_kernel"] <= tol
+                and res["merged_vs_plain"] <= tol):
+            raise AssertionError(f"msa_fused (o, lse) mode disagrees: "
+                                 f"{line}")
+    if not any(results[(n, d)]["no_key_rows"] for n in ("window",
+                                                        "no_local_page")
+               for d in ("bfloat16", "float32")):
+        raise AssertionError("no case had a row without a visible local "
+                             "key")
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -618,15 +858,247 @@ def split_kernel_phase(fused_results, fused_decode):
 
 
 # ---------------------------------------------------------------------------
+# phase 2, memory check: phase 2's small cases under compute-sanitizer
+# ---------------------------------------------------------------------------
+
+# The guard-zone allocator of the memory check (``--memcheck guard``): a
+# PyTorch pluggable CUDA allocator that gives every tensor its own
+# cudaMalloc with GUARD bytes of 0xFF before and after it and fills the
+# tensor itself with 0xFF (NaN in bf16 and f32, -1 in int32).  A write
+# past either end of any tensor changes a guard, which the allocator
+# checks when the tensor is freed and ``guard_check_live`` checks for the
+# tensors still alive; a read past an end, or of an element no one wrote,
+# brings a NaN into the result, which the check compares with the plain
+# version.
+_GUARD_SRC = r"""
+#include <cuda_runtime.h>
+#include <sys/types.h>
+#include <mutex>
+#include <unordered_map>
+#include <vector>
+
+namespace {
+constexpr size_t kGuard = 1 << 16;
+std::mutex mu;
+std::unordered_map<void*, size_t> live;
+long long n_checked = 0, n_bad = 0;
+
+bool intact(void* user, size_t size) {
+  std::vector<unsigned char> h(kGuard);
+  unsigned char* lo = static_cast<unsigned char*>(user) - kGuard;
+  for (unsigned char* g : {lo, lo + kGuard + size}) {
+    if (cudaMemcpy(h.data(), g, kGuard, cudaMemcpyDeviceToHost) !=
+        cudaSuccess)
+      return false;
+    for (unsigned char c : h)
+      if (c != 0xFF) return false;
+  }
+  return true;
+}
+}  // namespace
+
+extern "C" {
+void* guard_malloc(ssize_t size, int device, void* stream) {
+  unsigned char* p = nullptr;
+  const size_t total = (size_t)size + 2 * kGuard;
+  if (cudaMalloc(&p, total) != cudaSuccess) return nullptr;
+  if (cudaMemset(p, 0xFF, total) != cudaSuccess ||
+      cudaDeviceSynchronize() != cudaSuccess)
+    return nullptr;
+  std::lock_guard<std::mutex> lock(mu);
+  live[p + kGuard] = (size_t)size;
+  return p + kGuard;
+}
+
+void guard_free(void* ptr, ssize_t size, int device, void* stream) {
+  cudaDeviceSynchronize();
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = live.find(ptr);
+  if (it == live.end()) return;
+  ++n_checked;
+  if (!intact(ptr, it->second)) ++n_bad;
+  live.erase(it);
+  cudaFree(static_cast<unsigned char*>(ptr) - kGuard);
+}
+
+// checks every live allocation; returns the guards found changed so far
+long long guard_check_live() {
+  cudaDeviceSynchronize();
+  std::lock_guard<std::mutex> lock(mu);
+  for (auto& kv : live) {
+    ++n_checked;
+    if (!intact(kv.first, kv.second)) ++n_bad;
+  }
+  return n_bad;
+}
+
+long long guard_checked() { return n_checked; }
+}
+"""
+
+
+def _guard_allocator():
+    """Build the guard-zone allocator with ``nvcc`` into ``build/`` and
+    make it PyTorch's CUDA allocator (before any CUDA allocation); returns
+    its library."""
+    import ctypes
+    import torch
+    from repro_torch.kernels.msa import _build
+    src = _build.BUILD_DIR / "guard_alloc.cu"
+    so = src.with_suffix(".so")
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(_GUARD_SRC)
+    subprocess.run([_build._nvcc(), "-std=c++17", "-O2", "-shared",
+                    "-Xcompiler", "-fPIC", "-o", str(so), str(src)],
+                   check=True, timeout=300)
+    torch.cuda.memory.change_current_allocator(
+        torch.cuda.memory.CUDAPluggableAllocator(str(so), "guard_malloc",
+                                                 "guard_free"))
+    lib = ctypes.CDLL(str(so))
+    lib.guard_check_live.restype = ctypes.c_longlong
+    lib.guard_checked.restype = ctypes.c_longlong
+    return lib
+
+
+def _memcheck_child(mode: str) -> None:
+    """Phase 2's small cases, each kernel launched once (the fused kernel,
+    its (o, lse) mode, and the prefill and decode kernels), in bf16 and
+    f32, under ``compute-sanitizer`` (``mode`` "sanitizer") or over the
+    guard-zone allocator (``mode`` "guard"), where each launch is also
+    synchronised and held to its plain version (a read past a tensor
+    reads NaN), and every guard is checked at the end."""
+    import torch
+    lib = _guard_allocator() if mode == "guard" else None
+    _, _, fused_small, _ = fused_cases()
+    _, partial_small = partial_cases()
+    _, _, split_small, _ = split_cases()
+    launches, worst = 0, 0.0
+
+    def check(got, want, dtype_name):
+        nonlocal launches, worst
+        launches += 1
+        if lib is None:
+            return
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError("memcheck: a kernel output holds NaN "
+                                     "(an unwritten element, or a read "
+                                     "past a tensor)")
+            err = float((g.float() - w.float()).abs().max())
+            worst = max(worst, err)
+            if not err <= KERNEL_TOL[dtype_name]:
+                raise AssertionError(f"memcheck: kernel disagrees ({err})")
+
+    for dtype_name in ("bfloat16", "float32"):
+        for case in fused_small.values():
+            kernel, plain = _fused_fns(case, dtype_name)
+            check([kernel()], [plain()], dtype_name)
+        for case in partial_small.values():
+            for i in range(case["shards"]):
+                kernel, plain = _partial_fns(case, _shard_view(case, i),
+                                             dtype_name)
+                (o, lse), (wo, wlse) = kernel(), plain()
+                seen = wlse > _NO_KEY
+                check([o, lse[seen]], [wo, wlse[seen]], dtype_name)
+        for (kind, _), case in split_small.items():
+            kernel, plain, _ = _split_fns(kind, case, dtype_name)
+            check([kernel()], [plain()], dtype_name)
+    torch.cuda.synchronize()
+    line = {"mode": mode, "launches": launches}
+    if lib is not None:
+        line.update(bad_guards=int(lib.guard_check_live()),
+                    guarded_tensors=int(lib.guard_checked()),
+                    max_abs_err=worst)
+    print("memcheck_child: " + json.dumps(line), flush=True)
+    if lib is not None and line["bad_guards"]:
+        raise AssertionError(f"memcheck: {line['bad_guards']} guard zones "
+                             "were written")
+
+
+_PROBE_SRC = r"""
+#include <cstdio>
+__global__ void fill(float* x) { x[threadIdx.x] = threadIdx.x; }
+int main() {
+  float* x = nullptr;
+  if (cudaMalloc(&x, 32 * sizeof(float)) != cudaSuccess) return 1;
+  fill<<<1, 32>>>(x);
+  return cudaDeviceSynchronize() == cudaSuccess ? 0 : 1;
+}
+"""
+
+
+def memcheck_phase() -> dict:
+    """The memory check of phase 2's small cases, in child processes:
+    under ``compute-sanitizer --tool memcheck`` (beside ``nvcc`` in the
+    CUDA toolkit; a missing tool raises) with PyTorch's caching allocator
+    off, failing on any error it reports, unless it refuses the device
+    ("Device not supported", as it does in the machines this script has
+    run on: then it says so); and over the guard-zone allocator, failing
+    on a written guard, a NaN or a disagreement.  Returns each run's
+    seconds and outcome."""
+    import os
+    from repro_torch.kernels.msa import _build
+    tool = Path(_build._nvcc()).parent / "compute-sanitizer"
+    if not tool.exists():
+        raise RuntimeError(f"compute-sanitizer not found at {tool}")
+    me = str(Path(__file__).resolve())
+    # a 10-line CUDA program first: where the tool refuses the device it
+    # says so at once, and the Python child under it is not run
+    t0 = time.perf_counter()
+    probe = _build.BUILD_DIR / "memcheck_probe"
+    probe.parent.mkdir(parents=True, exist_ok=True)
+    probe.with_suffix(".cu").write_text(_PROBE_SRC)
+    subprocess.run([_build._nvcc(), "-o", str(probe),
+                    str(probe.with_suffix(".cu"))], check=True, timeout=300)
+    first = subprocess.run([str(tool), "--tool", "memcheck", str(probe)],
+                           capture_output=True, text=True, timeout=300)
+    refused = "Device not supported" in first.stdout + first.stderr
+    out = {}
+    for mode, cmd, env in (
+            ("sanitizer", [str(tool), "--tool", "memcheck",
+                           "--error-exitcode", "3", sys.executable, me,
+                           "--memcheck", "sanitizer"],
+             dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1")),
+            ("guard", [sys.executable, me, "--memcheck", "guard"],
+             dict(os.environ))):
+        if mode == "sanitizer" and refused:
+            run = first
+        else:
+            t0 = time.perf_counter()
+            run = subprocess.run(cmd, capture_output=True, text=True,
+                                 env=env, timeout=600)
+        report = (run.stdout + run.stderr).strip().splitlines()
+        res = {"returncode": run.returncode,
+               "seconds": time.perf_counter() - t0,
+               "summary": [ln for ln in report if "ERROR SUMMARY" in ln
+                           or ln.startswith("memcheck_child")]}
+        res["outcome"] = (
+            "device not supported by the tool"
+            if mode == "sanitizer" and refused
+            else "ok" if run.returncode == 0 else "failed")
+        print(f"memcheck {mode}: " + json.dumps(res), flush=True)
+        if res["outcome"] == "failed":
+            print("\n".join(report[-60:]), flush=True)
+            raise AssertionError(f"memory check ({mode}) failed (exit "
+                                 f"{run.returncode})")
+        out[mode] = res
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3: serve Llama-3.1-8B at full width through the port
 # ---------------------------------------------------------------------------
 
 def _kernel_counts():
-    """The launch counters of the three kernel wrappers."""
+    """The launch counters of the kernel wrappers: the three kernels and
+    the fused kernel's (o, lse) mode."""
     from repro_torch.kernels.msa import (msa_decode_cuda, msa_fused_cuda,
+                                         msa_fused_partial_cuda,
                                          msa_prefill_cuda)
     return {"msa_fused": msa_fused_cuda, "msa_prefill": msa_prefill_cuda,
-            "msa_decode": msa_decode_cuda}
+            "msa_decode": msa_decode_cuda,
+            "msa_fused_partial": msa_fused_partial_cuda}
 
 
 def _measured_run(srv, serve):
@@ -715,13 +1187,17 @@ def serve_phase():
     # later turns find part of their history evicted and recompute it
     num_blocks = 256
 
-    def make_server(attn_mode="fused", clock="wall"):
+    def make_server(attn_mode="fused", clock="wall", n_shards=1):
+        # n_shards > 1: sharded serving, every shard on this one card
         ecfg = EngineConfig(num_pages=num_blocks, page_size=16,
                             max_prefills=4, max_chunk=128, max_decodes=64,
                             max_blocks_per_seq=128, attn_mode=attn_mode)
         return AsymCacheServer(
-            cfg, params, ServerConfig(num_blocks=num_blocks, clock=clock,
-                                      attn_mode=attn_mode), ecfg=ecfg)
+            cfg, params, ServerConfig(
+                num_blocks=num_blocks, clock=clock, attn_mode=attn_mode,
+                n_shards=n_shards,
+                shard_devices=["cuda:0"] * n_shards if n_shards > 1
+                else None), ecfg=ecfg)
 
     # warm-up on a separate server so that the measured run's TTFT does not
     # carry cuBLAS and allocator start-up
@@ -741,7 +1217,8 @@ def serve_phase():
     assert seg_chunks, "no prefill chunk recomputed a multi-segment history"
     assert res["attn_dispatches_per_step"] == cfg.n_layers
     assert launches == {"msa_fused": cfg.n_layers * steps, "msa_prefill": 0,
-                        "msa_decode": 0}, (launches, steps)
+                        "msa_decode": 0, "msa_fused_partial": 0}, \
+        (launches, steps)
 
     worst, refs = 0.0, []
     for r in wl:
@@ -788,7 +1265,8 @@ def split_serve_phase(fused):
     assert res["n_requests"] == len(wl)
     assert res["attn_dispatches_per_step"] == 2 * L
     assert launches == {"msa_fused": 0, "msa_prefill": L * steps,
-                        "msa_decode": L * steps}, (launches, steps)
+                        "msa_decode": L * steps, "msa_fused_partial": 0}, \
+        (launches, steps)
     worst = 0.0
     for r, f, ref in zip(wl, fused["wl"], fused["refs"]):
         assert r.prompt_tokens == f.prompt_tokens
@@ -805,7 +1283,20 @@ def split_serve_phase(fused):
         w_ = make_workload(seed=0)
         r_, seg_, launches_ = _measured_run(s_, lambda: s_.run(w_))
         runs[mode] = (w_, r_, seg_)
-    (wf, rf, segf), (ws, rs, segs) = runs["fused"], runs["split"]
+    line = _agreement(runs["fused"], runs["split"], fused["refs"])
+    print("split_vs_fused: " + json.dumps(line), flush=True)
+    return launches, runs["fused"]
+
+
+def _agreement(base, other, refs):
+    """Two model-clock runs ``(workload, result, multi-segment chunks)``
+    of one workload held to each other: the same steps, evictions,
+    computed prefill tokens and multi-segment chunks, every request
+    finished, equal first sampled ids, first logits within
+    ``LOGIT_REL_TOL`` of the base run's and of the dense reference
+    ``refs``; the share of equal sampled ids is reported.  Raises on a
+    failed check; returns the line it prints."""
+    (wf, rf, segf), (ws, rs, segs) = base, other
     same = {k: (rf[k], rs[k]) for k in
             ("steps", "evictions", "prefill_compute_tokens")}
     same["multi_segment_chunks"] = (segf, segs)
@@ -814,22 +1305,108 @@ def split_serve_phase(fused):
                   for x, y in zip(a.sampled_ids, b.sampled_ids))
     first_equal = [a.sampled_ids[:1] == b.sampled_ids[:1]
                    for a, b in zip(wf, ws)]
-    vs_fused = [_rel(b.first_logits, a.first_logits) for a, b in zip(wf, ws)]
-    vs_dense = [_rel(b.first_logits, ref)
-                for b, ref in zip(ws, fused["refs"])]
-    print("split_vs_fused: " + json.dumps({
-        "clock": "model", "schedule": same,
-        "first_sampled_id_equal": sum(first_equal),
-        "requests": len(wf),
-        "sampled_ids_equal_share": n_equal / n_ids,
-        "sampled_ids": n_ids,
-        "worst_first_logit_rel_err_vs_fused": max(vs_fused),
-        "worst_first_logit_rel_err_vs_dense": max(vs_dense)}), flush=True)
-    assert all(a == b for a, b in same.values()), same
+    vs_base = [_rel(b.first_logits, a.first_logits) for a, b in zip(wf, ws)]
+    vs_dense = [_rel(b.first_logits, ref) for b, ref in zip(ws, refs)]
+    line = {"clock": "model", "schedule": same,
+            "first_sampled_id_equal": sum(first_equal),
+            "requests": len(wf),
+            "sampled_ids_equal_share": n_equal / n_ids,
+            "sampled_ids": n_ids,
+            "worst_first_logit_rel_err_vs_base": max(vs_base),
+            "worst_first_logit_rel_err_vs_dense": max(vs_dense)}
+    assert all(a == b for a, b in same.values()), line
     assert all(a.status == b.status == "finished" for a, b in zip(wf, ws))
-    assert all(first_equal), first_equal
-    assert max(vs_fused) < LOGIT_REL_TOL and max(vs_dense) < LOGIT_REL_TOL
-    return launches
+    assert all(first_equal), line
+    assert max(vs_base) < LOGIT_REL_TOL and max(vs_dense) < LOGIT_REL_TOL, \
+        line
+    return line
+
+
+# ---------------------------------------------------------------------------
+# phase 8: sharded serving, its shards on this one card
+# ---------------------------------------------------------------------------
+
+# N = 4 serves the first SHARD_CUT_SESSIONS of the workload's four
+# sessions (enough to overflow the pool): its host runs four shards' ops
+# a layer, about four times a single-device step's
+SHARD_CUT_SESSIONS = 3
+
+
+def _tensor_bytes(tree, spec=None, n=1) -> int:
+    """Bytes of a parameter tree; with the serving ``spec`` and ``n``, the
+    bytes one of n shards should hold (a tensor split on "model" by n)."""
+    return sum(_tensor_bytes(v, spec and spec[k], n) if isinstance(v, dict)
+               else v.numel() * v.element_size()
+               // (n if spec and "model" in spec[k] else 1)
+               for k, v in tree.items())
+
+
+def sharded_phase(fused, fused_model):
+    """Llama-3.1-8B served sharded (page-sharded pools, tensor-parallel
+    weights, the partials merged exactly) over 2 and then 4 shards on this
+    one card, on the model clock, held to the single-device fused run of
+    the same workload (phase 3b's, or the same cut for N = 4): the same
+    schedule and first sampled ids, first logits within tolerance of it
+    and of the dense reference; one (o, lse) launch a shard a layer a
+    step and no fused-mode launch; each shard's weight bytes; the host's
+    assembly seconds a step (N work-lists).  Then a profile of one request
+    at N = 2.  Returns the N = 2 run's kernel counts."""
+    import torch
+    from repro_torch.distributed import serving_param_shardings
+    cfg, params = fused["cfg"], fused["params"]
+    make_server, make_workload = fused["make_server"], fused["make_workload"]
+    L = cfg.n_layers
+    total = _tensor_bytes(params)
+    first = None
+    for n in (2, 4):
+        if n == 2:
+            keep = lambda wl: wl                             # noqa: E731
+            base, refs = fused_model, fused["refs"]
+        else:
+            def keep(wl):
+                return [r for r in wl if r.session_id < SHARD_CUT_SESSIONS]
+            s1 = make_server(clock="model")
+            w1 = keep(make_workload(seed=0))
+            r1, seg1, _ = _measured_run(s1, lambda: s1.run(w1))
+            base = (w1, r1, seg1)
+            refs = [ref for r, ref in zip(fused["wl"], fused["refs"])
+                    if r.session_id < SHARD_CUT_SESSIONS]
+            del s1
+        srv = make_server(clock="model", n_shards=n)
+        shard_bytes = [_tensor_bytes(p) for p in srv.engine.params]
+        want_bytes = _tensor_bytes(
+            params, serving_param_shardings(cfg, n)[1], n)
+        wn = keep(make_workload(seed=0))
+        rn, segn, launches = _measured_run(srv, lambda: srv.run(wn))
+        steps = srv.engine.steps_executed
+        line = _agreement(base, (wn, rn, segn), refs)
+        line.update({
+            "n_shards": n, "devices": [str(d) for d in
+                                       srv.engine.group.devices],
+            "workload": "whole" if n == 2 else
+                        f"first {SHARD_CUT_SESSIONS} sessions",
+            "steps": steps, "kernel_launches": launches,
+            "per_shard_used": rn["per_shard_used"],
+            "weight_gb_total": total / 1e9,
+            "weight_gb_per_shard": [b / 1e9 for b in shard_bytes],
+            "assembly_mean_s": statistics.mean(rn["assembly_s"]),
+            "base_assembly_mean_s": statistics.mean(base[1]["assembly_s"]),
+            "wall_s": rn["wall_time"],
+            "base_wall_s": base[1]["wall_time"],
+            "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30})
+        print("sharded_vs_single: " + json.dumps(line), flush=True)
+        assert launches == {"msa_fused": 0, "msa_prefill": 0,
+                            "msa_decode": 0,
+                            "msa_fused_partial": n * L * steps}, launches
+        assert rn["attn_dispatches_per_step"] == L
+        assert shard_bytes == [want_bytes] * n, (shard_bytes, want_bytes)
+        first = first or launches
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+    profile_phase(lambda mode: make_server(n_shards=2), make_workload,
+                  "sharded", n_requests=1)
+    return first
 
 
 # ---------------------------------------------------------------------------
@@ -908,8 +1485,8 @@ def online_phase(fused):
     ``max_decode_steps`` 8) -> k fused decode iterations a dispatch, each
     through the fused kernel once a layer.  Then the same scripts at k = 1
     on the wall clock (TPOT beside k = 8), and at k = 1 and k = 8 on the
-    model clock, held to each other.  Returns the kernel counts of the
-    k = 8 wall-clock run."""
+    model clock over the first ``OFFLOAD_LAYERS`` layers, held to each
+    other.  Returns the kernel counts of the k = 8 wall-clock run."""
     from repro_torch.serving import SessionState, reference_logits
     cfg, params = fused["cfg"], fused["params"]
     srv, fe, res, launches = _online_run(cfg, params, ONLINE_K, "wall")
@@ -920,7 +1497,8 @@ def online_phase(fused):
     assert res["multi_token_dispatches"] > 0, "no k-step dispatch"
     assert res["prefetch_swap_ins"] > 0, "no prefetch swap-in"
     assert launches == {"msa_fused": srv.engine.attn_dispatches,
-                        "msa_prefill": 0, "msa_decode": 0}, \
+                        "msa_prefill": 0, "msa_decode": 0,
+                        "msa_fused_partial": 0}, \
         (launches, srv.engine.attn_dispatches)
     assert srv.engine.jit_traces == len(srv.engine.buckets_used)
     worst = 0.0
@@ -937,7 +1515,11 @@ def online_phase(fused):
     print("online: " + json.dumps(_online_line(*one, 1, "wall")), flush=True)
     assert all(s.state is SessionState.FINISHED for s in one[1].sessions)
 
-    runs = {k: _online_run(cfg, params, k, "model") for k in (1, ONLINE_K)}
+    # the model-clock pair on the first OFFLOAD_LAYERS layers (the same
+    # weights): the k-vs-1 identity does not depend on the depth
+    cut_cfg, cut_params = _first_layers(cfg, params, OFFLOAD_LAYERS)
+    runs = {k: _online_run(cut_cfg, cut_params, k, "model")
+            for k in (1, ONLINE_K)}
     for k, run in runs.items():
         print("online: " + json.dumps(_online_line(*run, k, "model")),
               flush=True)
@@ -954,6 +1536,7 @@ def online_phase(fused):
     vs_one = [_rel(b.first_logits, a.first_logits) for a, b in zip(t1, tk)]
     print("k_vs_1: " + json.dumps({
         "clock": "model", "k": ONLINE_K, "turns": len(t1),
+        "n_layers": cut_cfg.n_layers,
         "generated_equal": True,
         "first_sampled_id_equal": sum(first_equal),
         "sampled_ids_equal_share": n_equal / n_ids, "sampled_ids": n_ids,
@@ -1115,11 +1698,19 @@ def _f8_cast_check():
     assert line["decode_256_codes_equal"], line
 
 
-# phase 6 serves Llama-3.1-8B's first 8 layers (the same weights): its
+# phases 5 (its model-clock pair) and 6 serve Llama-3.1-8B's first 8
+# layers (the same weights): phase 6's
 # four closed-loop runs take ~4 minutes at 32 layers, and neither the
 # identity of the arms nor the byte ratio depends on the depth (a block's
 # payload is the layers times one layer's page)
 OFFLOAD_LAYERS = 8
+
+
+def _first_layers(cfg, params, n):
+    """The model cut to its first ``n`` layers, on views of ``params``."""
+    return (dataclasses.replace(cfg, n_layers=n),
+            {**params, "blocks": {k: v[:n] for k, v
+                                  in params["blocks"].items()}})
 
 
 def offload_phase(full_cfg, full_params):
@@ -1132,9 +1723,7 @@ def offload_phase(full_cfg, full_params):
     on views of ``full_params``' first layers."""
     from repro_torch.core import OffloadConfig
     from repro_torch.serving import SessionState, reference_logits
-    cfg = dataclasses.replace(full_cfg, n_layers=OFFLOAD_LAYERS)
-    params = {**full_params, "blocks": {
-        k: v[:OFFLOAD_LAYERS] for k, v in full_params["blocks"].items()}}
+    cfg, params = _first_layers(full_cfg, full_params, OFFLOAD_LAYERS)
     cuts = {"n_layers": [full_cfg.n_layers, cfg.n_layers]}
     for quant in ("int8", "fp8"):
         arms = {}
@@ -1154,7 +1743,8 @@ def offload_phase(full_cfg, full_params):
             assert all(s.state is SessionState.FINISHED
                        for s in fe.sessions)
             assert launches == {"msa_fused": srv.engine.attn_dispatches,
-                                "msa_prefill": 0, "msa_decode": 0}, launches
+                                "msa_prefill": 0, "msa_decode": 0,
+                                "msa_fused_partial": 0}, launches
         (sa, fa, ra), (sb, fb, rb) = arms[True], arms[False]
         ta, tb = _turns(fa), _turns(fb)
         same = {
@@ -1297,7 +1887,8 @@ def grok_phase():
     assert res["evictions"] > 0, "the pool never evicted"
     assert line["history_tokens_recomputed"] > 0, "no history recomputed"
     assert launches == {"msa_fused": srv.engine.attn_dispatches,
-                        "msa_prefill": 0, "msa_decode": 0}, launches
+                        "msa_prefill": 0, "msa_decode": 0,
+                        "msa_fused_partial": 0}, launches
     assert srv.engine.attn_dispatches == L * steps
     worst, refs = 0.0, []
     for r in wl:
@@ -1323,9 +1914,11 @@ def grok_phase():
         w_ = grok_workload(cfg, seed=0)
         r_, seg_, launches_ = _measured_run(s_, lambda: s_.run(w_))
         n = s_.engine.steps_executed
-        want = ({"msa_fused": L * n, "msa_prefill": 0, "msa_decode": 0}
+        want = ({"msa_fused": L * n, "msa_prefill": 0, "msa_decode": 0,
+                 "msa_fused_partial": 0}
                 if mode == "fused" else
-                {"msa_fused": 0, "msa_prefill": L * n, "msa_decode": L * n})
+                {"msa_fused": 0, "msa_prefill": L * n, "msa_decode": L * n,
+                 "msa_fused_partial": 0})
         assert launches_ == want, (mode, launches_, want)
         runs[mode] = (w_, r_, seg_, launches_)
     (wf, rf, segf, lf), (ws, rs, segs, ls) = runs["fused"], runs["split"]
@@ -1362,22 +1955,28 @@ def grok_phase():
 # phase 4: where a serving run's device time goes
 # ---------------------------------------------------------------------------
 
-def profile_phase(make_server, make_workload, mode="fused"):
-    """torch.profiler (CPU and CUDA activity) over a short serving run of
-    two requests in the ``mode`` layout: device time by kernel, the share
+def profile_phase(make_server, make_workload, mode="fused", n_requests=2):
+    """torch.profiler (CUDA activity: the device's kernels and copies; the
+    host's ops are not recorded, whose events took minutes to gather over
+    a sharded run) over a short serving run of ``n_requests`` requests in
+    the ``mode`` layout: device time by kernel, the share
     of each attention kernel (every kernel one wrapper call launches: the
     kernel and its merge), its mean device time a call, and the device's
     idle share of the run's wall time (the profiler's own host cost
     included, so the idle share is an upper bound).  In the split layout,
     also how many prefill launches had no valid row (the steps with no
-    prefill chunk launch it over padding rows only)."""
+    prefill chunk launch it over padding rows only).  ``mode`` "sharded":
+    a sharded fused server, whose calls are the (o, lse) mode's (the
+    profiler names its kernels ``msa_fused_*`` too)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     srv = make_server(mode)
-    wl = make_workload(seed=2)[:2]
-    names = (("msa_fused",) if mode == "fused"
-             else ("msa_prefill", "msa_decode"))
+    wl = make_workload(seed=2)[:n_requests]
+    names = (("msa_prefill", "msa_decode") if mode == "split"
+             else ("msa_fused",))
     counters = _kernel_counts()
+    if mode == "sharded":
+        counters["msa_fused"] = counters["msa_fused_partial"]
     dispatch, no_prefill = srv.engine.dispatch, []
 
     def counting_dispatch(plan):
@@ -1388,8 +1987,7 @@ def profile_phase(make_server, make_workload, mode="fused"):
     torch.cuda.synchronize()
     calls0 = {n: counters[n].launches for n in names}
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         res = srv.run(wl)
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
@@ -1402,6 +2000,7 @@ def profile_phase(make_server, make_workload, mode="fused"):
               "(not measured)", flush=True)
         return
     line = {"model": srv.engine.cfg.name, "layout": mode,
+            "n_shards": srv.engine.n_shards,
             "steps": res["steps"], "wall_ms": wall_us / 1e3,
             "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1.0 - busy_us / wall_us,
@@ -1438,6 +2037,15 @@ def main() -> int:
     sys.path.insert(0, str(root / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--memcheck"]:     # memcheck_phase's children
+        _memcheck_child(sys.argv[2])
+        return 0
+
+    start = time.perf_counter()
+
+    def done(phase):
+        print("phase_done " + json.dumps(
+            {"phase": phase, "s": time.perf_counter() - start}), flush=True)
 
     card = _card_line()
     print(card, flush=True)
@@ -1455,17 +2063,30 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"build: {name}: " + line.strip(), flush=True)
 
+    done("build")
     fused_results, fused_decode = kernel_phase()
     prefill_main, decode_main = split_kernel_phase(fused_results,
                                                    fused_decode)
+    partial_main = partial_kernel_phase()[("main", "bfloat16")]
+    done("2 kernels")
+    memcheck_phase()
+    done("2 memcheck")
     torch.cuda.empty_cache()
     fused = serve_phase()
-    split_launches = split_serve_phase(fused)
+    done("3")
+    split_launches, fused_model = split_serve_phase(fused)
+    done("3b")
     for mode in ("fused", "split"):
         profile_phase(fused["make_server"], fused["make_workload"], mode)
+    done("4")
     online_launches = online_phase(fused)
     single_plan_phase(fused)
+    done("5")
     offload_phase(fused["cfg"], fused["params"])
+    done("6")
+    sharded_launches = sharded_phase(fused, fused_model)
+    del fused_model
+    done("8")
     # Grok-1's ~43 GB of weights must not meet Llama's 16 GB: drop every
     # reference to Llama's weights and pools (the servers hold cycles)
     del fused
@@ -1476,6 +2097,7 @@ def main() -> int:
           flush=True)
     assert left < 2.0, left
     grok_phase()
+    done("7")
 
     fused_main = fused_results[("main", "bfloat16")]
     src = "src/repro_torch/kernels/msa/csrc/"
@@ -1486,6 +2108,19 @@ def main() -> int:
             ("msa_decode", "msa_decode.py:26", decode_main,
              split_launches["msa_decode"])]
     print(card, flush=True)
+    # the fused kernel's (o, lse) mode: no Pallas kernel of its own (the
+    # JAX package computes the partial in XLA only, ops.py:69)
+    print(json.dumps({"kernel_modes": [{
+        "name": "msa_fused_partial", "route": "cuda",
+        "source": f"{src}msa_fused.cu",
+        "replaces": "src/repro/kernels/msa/ops.py:69 (msa_fused_partial, "
+                    "XLA only: no Pallas kernel)",
+        "launches": sharded_launches["msa_fused_partial"],
+        "max_abs_err": partial_main["max_abs_err"],
+        "ms": partial_main["ms"], "plain_ms": partial_main["plain_ms"],
+        "bound_ms": partial_main["bound_ms"],
+        "bound_by": partial_main["bound_by"], "library_ms": None}]}),
+        flush=True)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"{src}{name}.cu",
         "replaces": f"src/repro/kernels/msa/{where}",

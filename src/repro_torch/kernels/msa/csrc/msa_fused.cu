@@ -57,10 +57,22 @@
 // full on a decode-only step; copies run ahead of the math.  What it does
 // not do yet: TMA, wgmma, or warp specialisation; a decode unit still
 // fills only G of the 16 rows of its products.
+//
+// The (o, lse) mode (kLse, msa_fused.msa_fused_partial_cuda) is the per-
+// shard term of sharded serving, the plain version's msa_fused_partial_ref
+// (the JAX package computes it in XLA only, ops.msa_fused_partial): the
+// same work items over one shard's local pages and work-list, but the
+// output is float32 o = acc / max(l, 1e-30), not rounded to the input
+// type, beside lse = m + log(l) where l > 0 and NEG_INF where no visible
+// key was seen (a row whose local keys are all masked, or that no local
+// item covers), so that the shards' partials merge exactly.  The merge
+// kernel writes lse for the runs it merges.  The mode is a template
+// argument: the other mode's code is as it was.
 
 #include "msa_tile.cuh"
 
 #include <limits.h>
+#include <type_traits>
 
 namespace {
 
@@ -70,12 +82,13 @@ struct Units {
   const int *mg_row0, *mg_rows, *mg_units, *counts;
 };
 
-template <typename T, int kDP>
+template <typename T, int kDP, bool kLse>
 __global__ void __launch_bounds__(kThreadsF) msa_fused_kernel(
     const T* __restrict__ q,            // (T, H, D)
     const T* __restrict__ k_pages,      // (P, page, KH, D)
     const T* __restrict__ v_pages,      // (P, page, KH, D)
-    T* __restrict__ out,                // (T, H, D)
+    std::conditional_t<kLse, float, T>* __restrict__ out,  // (T, H, D)
+    float* __restrict__ lse,            // (T, H), kLse only
     float* __restrict__ part_o,         // (RUN_UNITS, T, H, D)
     float* __restrict__ part_ml,        // (RUN_UNITS, T, H, 2)
     const int* __restrict__ ctx_lens,   // (N,)
@@ -86,6 +99,7 @@ __global__ void __launch_bounds__(kThreadsF) msa_fused_kernel(
     int q_tile, int slices, int window, float softcap, float scale,
     bool wide) {
   using L = Tile<T, kDP>;
+  using TO = std::conditional_t<kLse, float, T>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -108,11 +122,13 @@ __global__ void __launch_bounds__(kThreadsF) msa_fused_kernel(
     const int row0 = u.row0[unit];
     const int items = u.items[unit];
     const int head0 = kvh * G;
-    if (items == 0) {  // rows no item covers: exact zeros
+    if (items == 0) {  // rows no item covers: exact zeros (lse NEG_INF)
       for (int i = tid; i < min(M - m0, kMRows) * D; i += kThreadsF) {
         const int m = m0 + i / D;
-        out[((size_t)(row0 + m / G) * n_heads + head0 + m % G) * D + i % D] =
-            from_f32<T>(0.f);
+        const size_t at = (size_t)(row0 + m / G) * n_heads + head0 + m % G;
+        out[at * D + i % D] = from_f32<TO>(0.f);
+        if constexpr (kLse)
+          if (i % D == 0) lse[at] = kNegInf;
       }
       continue;
     }
@@ -283,15 +299,18 @@ __global__ void __launch_bounds__(kThreadsF) msa_fused_kernel(
       const size_t at = (size_t)(row0 + m / G) * n_heads + head0 + m % G;
       if (part < 0) {
         const float inv = 1.f / fmaxf(l, 1e-30f);
-        T* dst = out + at * D;
+        TO* dst = out + at * D;
 #pragma unroll
         for (int nd = 0; nd < kDP / 8; ++nd) {
           const int d = nd * 8 + 2 * (lane & 3);
           if (d < D) {
-            dst[d] = from_f32<T>(o[nd][2 * h] * inv);
-            dst[d + 1] = from_f32<T>(o[nd][2 * h + 1] * inv);
+            dst[d] = from_f32<TO>(o[nd][2 * h] * inv);
+            dst[d + 1] = from_f32<TO>(o[nd][2 * h + 1] * inv);
           }
         }
+        if constexpr (kLse)
+          if ((lane & 3) == 0)
+            lse[at] = l > 0.f ? m_run[h] + logf(l) : kNegInf;
       } else {
         const size_t pat = (size_t)part * n_rows * n_heads + at;
         float* dst = part_o + pat * D;
@@ -311,14 +330,17 @@ __global__ void __launch_bounds__(kThreadsF) msa_fused_kernel(
 }
 
 // The runs that were cut: out = sum_k o_k e^(m_k - m) / max(sum_k l_k
-// e^(m_k - m), 1e-30), m = max_k m_k, over units k = 0, 1, ... in order.
-// A block task is 256 output pairs of dims of one (run, row): one pair a
-// thread, the units' partials read side by side.
-template <typename T>
+// e^(m_k - m), 1e-30), m = max_k m_k, over units k = 0, 1, ... in order
+// (kLse: also lse = m + log(l), NEG_INF where l == 0).  A block task is
+// 256 output pairs of dims of one (run, row): one pair a thread, the
+// units' partials read side by side.
+template <typename T, bool kLse>
 __global__ void __launch_bounds__(256) msa_fused_merge_kernel(
-    T* __restrict__ out, const float* __restrict__ part_o,
+    std::conditional_t<kLse, float, T>* __restrict__ out,
+    float* __restrict__ lse, const float* __restrict__ part_o,
     const float* __restrict__ part_ml, Units u, int n_rows, int n_heads,
     int D, int q_tile) {
+  using TO = std::conditional_t<kLse, float, T>;
   const size_t plane = (size_t)n_rows * n_heads;
   const int pairs = n_heads * (D / 2);  // output pairs of a row
   const int chunks = (pairs + 255) / 256;
@@ -347,8 +369,10 @@ __global__ void __launch_bounds__(256) msa_fused_merge_kernel(
       y = fmaf(v.y, w, y);
     }
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    out[at * D + d] = from_f32<T>(x * inv);
-    out[at * D + d + 1] = from_f32<T>(y * inv);
+    out[at * D + d] = from_f32<TO>(x * inv);
+    out[at * D + d + 1] = from_f32<TO>(y * inv);
+    if constexpr (kLse)
+      if (d == 0) lse[at] = l > 0.f ? m + logf(l) : kNegInf;
   }
 }
 
@@ -364,23 +388,24 @@ int sm_count() {
   return n;
 }
 
-template <typename T, int kDP>
+template <typename T, int kDP, bool kLse>
 int launch(const void* q, const void* k_pages, const void* v_pages, void* out,
-           float* part_o, float* part_ml, const int* ctx_lens,
+           float* lse, float* part_o, float* part_ml, const int* ctx_lens,
            const int* q_pos, const int* wl_slot, const int* wl_kvbase,
            const Units& u, int n_rows, int n_heads, int n_kv_heads, int D,
            int page, int q_tile, int window, float softcap,
            cudaStream_t stream) {
   using L = Tile<T, kDP>;
+  using TO = std::conditional_t<kLse, float, T>;
   static_assert(L::kSmem <= kMaxSmem, "shared memory");
   static int blocks_per_sm = 0;
   if (blocks_per_sm == 0) {
     cudaError_t err = cudaFuncSetAttribute(
-        msa_fused_kernel<T, kDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)L::kSmem);
+        msa_fused_kernel<T, kDP, kLse>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmem);
     if (err != cudaSuccess) return (int)err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks_per_sm, msa_fused_kernel<T, kDP>, kThreadsF, L::kSmem);
+        &blocks_per_sm, msa_fused_kernel<T, kDP, kLse>, kThreadsF, L::kSmem);
     if (err != cudaSuccess) return (int)err;
     if (blocks_per_sm == 0) return (int)cudaErrorInvalidConfiguration;
   }
@@ -394,31 +419,32 @@ int launch(const void* q, const void* k_pages, const void* v_pages, void* out,
                     reinterpret_cast<uintptr_t>(k_pages) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(v_pages) % 16 == 0;
   const float scale = (float)(1.0 / sqrt((double)D));
-  msa_fused_kernel<T, kDP><<<sms * blocks_per_sm, kThreadsF, L::kSmem,
-                             stream>>>(
+  msa_fused_kernel<T, kDP, kLse><<<sms * blocks_per_sm, kThreadsF, L::kSmem,
+                                   stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<T*>(out), part_o, part_ml,
-      ctx_lens, q_pos, wl_slot, wl_kvbase, u, n_rows, n_heads, n_kv_heads, D,
-      page, q_tile, slices, window, softcap, scale, wide);
+      static_cast<const T*>(v_pages), static_cast<TO*>(out), lse, part_o,
+      part_ml, ctx_lens, q_pos, wl_slot, wl_kvbase, u, n_rows, n_heads,
+      n_kv_heads, D, page, q_tile, slices, window, softcap, scale, wide);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  msa_fused_merge_kernel<T><<<8 * sms, 256, 0, stream>>>(
-      static_cast<T*>(out), part_o, part_ml, u, n_rows, n_heads, D,
+  msa_fused_merge_kernel<T, kLse><<<8 * sms, 256, 0, stream>>>(
+      static_cast<TO*>(out), lse, part_o, part_ml, u, n_rows, n_heads, D,
       min(q_tile, n_rows));
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kLse>
 int launch_for_dim(const void* q, const void* k_pages, const void* v_pages,
-                   void* out, float* part_o, float* part_ml,
+                   void* out, float* lse, float* part_o, float* part_ml,
                    const int* ctx_lens, const int* q_pos, const int* wl_slot,
                    const int* wl_kvbase, const Units& u, int n_rows,
                    int n_heads, int n_kv_heads, int D, int page, int q_tile,
                    int window, float softcap, cudaStream_t stream) {
-#define MSA_LAUNCH(DP)                                                     \
-  return launch<T, DP>(q, k_pages, v_pages, out, part_o, part_ml, ctx_lens, \
-                       q_pos, wl_slot, wl_kvbase, u, n_rows, n_heads,       \
-                       n_kv_heads, D, page, q_tile, window, softcap, stream)
+#define MSA_LAUNCH(DP)                                                       \
+  return launch<T, DP, kLse>(q, k_pages, v_pages, out, lse, part_o, part_ml, \
+                             ctx_lens, q_pos, wl_slot, wl_kvbase, u, n_rows, \
+                             n_heads, n_kv_heads, D, page, q_tile, window,   \
+                             softcap, stream)
   if (D <= 32) MSA_LAUNCH(32);
   if (D <= 64) MSA_LAUNCH(64);
   if (D <= 128) MSA_LAUNCH(128);
@@ -434,8 +460,10 @@ extern "C" {
 // returns cudaGetLastError() (0 on success).  dtype: 0 = float32, 1 =
 // bfloat16.  D must be even and at most 256.  part_o / part_ml are f32
 // scratch of (RUN_UNITS, n_rows, H, D) and (RUN_UNITS, n_rows, H, 2).
+// lse == nullptr: out is (n_rows, H, D) in the input type; otherwise the
+// (o, lse) mode, out f32 (n_rows, H, D) and lse f32 (n_rows, H).
 int msa_fused_launch(const void* q, const void* k_pages, const void* v_pages,
-                     void* out, void* part_o, void* part_ml,
+                     void* out, void* part_o, void* part_ml, void* lse,
                      const int* ctx_lens, const int* q_pos,
                      const int* wl_slot, const int* wl_kvbase,
                      const int* u_item0, const int* u_items,
@@ -453,16 +481,17 @@ int msa_fused_launch(const void* q, const void* k_pages, const void* v_pages,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* po = static_cast<float*>(part_o);
   float* pml = static_cast<float*>(part_ml);
-  if (dtype == 0)
-    return launch_for_dim<float>(q, k_pages, v_pages, out, po, pml, ctx_lens,
-                                 q_pos, wl_slot, wl_kvbase, u, n_rows,
-                                 n_heads, n_kv_heads, D, page, q_tile, window,
-                                 softcap, st);
-  if (dtype == 1)
-    return launch_for_dim<__nv_bfloat16>(
-        q, k_pages, v_pages, out, po, pml, ctx_lens, q_pos, wl_slot,
-        wl_kvbase, u, n_rows, n_heads, n_kv_heads, D, page, q_tile, window,
-        softcap, st);
+  float* ls = static_cast<float*>(lse);
+#define MSA_DTYPE(T, LSE)                                                   \
+  return launch_for_dim<T, LSE>(q, k_pages, v_pages, out, ls, po, pml,      \
+                                ctx_lens, q_pos, wl_slot, wl_kvbase, u,     \
+                                n_rows, n_heads, n_kv_heads, D, page, q_tile, \
+                                window, softcap, st)
+  if (dtype == 0 && ls == nullptr) MSA_DTYPE(float, false);
+  if (dtype == 0) MSA_DTYPE(float, true);
+  if (dtype == 1 && ls == nullptr) MSA_DTYPE(__nv_bfloat16, false);
+  if (dtype == 1) MSA_DTYPE(__nv_bfloat16, true);
+#undef MSA_DTYPE
   return (int)cudaErrorInvalidValue;
 }
 

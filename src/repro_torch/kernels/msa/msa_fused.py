@@ -12,6 +12,11 @@ work units the kernel runs (:func:`build_units`): pieces of at most
 the units of a cut run write partials that a merge in the same call
 combines in a fixed order.
 
+The same kernel has an (o, lse) mode (:func:`msa_fused_partial_cuda`),
+the per-shard partial of sharded serving: a shard's work-list
+(``build_worklist(..., page_valid=...)``) over its own pages, float32 o
+and its log-sum-exp out.
+
 The kernel is built with ``nvcc`` from the sources in this package into
 ``build/`` at the repository root on first use and bound with ``ctypes``
 (``_build``).
@@ -55,6 +60,7 @@ def build_worklist(
     n_tiles: int,
     window: int = 0,
     pad_to: Optional[int] = None,
+    page_valid: Optional[np.ndarray] = None,
 ) -> Tuple[Dict[str, np.ndarray], int]:
     """Host-side (numpy) construction of the compacted work-list.
 
@@ -64,7 +70,15 @@ def build_worklist(
     sequence's context, at or below the tile's causal horizon (max valid
     q_pos), and — under a sliding window — not entirely below the
     window's lower edge.  Returns the field dict and the real
-    (pre-padding) item count."""
+    (pre-padding) item count.
+
+    ``page_valid`` (N, NP) bool (the port's; the reference has no such
+    argument) builds one shard's work-list for the (o, lse) partial: a
+    page marked False lives on another shard and gets no item, and
+    ``block_tables`` is then the shard's table of local slots (the global
+    slot minus the shard's first page where the page is local), so the
+    items address the shard's own pool.  A tile none of whose needed
+    pages is local gets the sentinel item, like an all-padding tile."""
     n = q_start.shape[0]
     np_width = block_tables.shape[1]
     seqs, qtiles, slots, kvbases, inits, lasts = [], [], [], [], [], []
@@ -86,6 +100,8 @@ def build_worklist(
             for j in range(n_pages):
                 base = j * page
                 if base >= ctx or base > horizon or base + page <= wlo:
+                    continue
+                if page_valid is not None and not page_valid[s, j]:
                     continue
                 seqs.append(s)
                 qtiles.append(t)
@@ -244,7 +260,7 @@ def build_units(wl: Dict[str, np.ndarray], q_start: np.ndarray,
 # ---------------------------------------------------------------------------
 
 _SIGNATURES = {
-    "msa_fused_launch": (ctypes.c_int, [ctypes.c_void_p] * 20
+    "msa_fused_launch": (ctypes.c_int, [ctypes.c_void_p] * 21
                          + [ctypes.c_int] * 7
                          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
     "msa_fused_error_string": (ctypes.c_char_p, [ctypes.c_int]),
@@ -257,28 +273,14 @@ def load_library() -> ctypes.CDLL:
     return _build.load("msa_fused", _SIGNATURES)
 
 
-def msa_fused_cuda(
-    q: torch.Tensor,              # (T, H, D) bf16 | f32
-    k_pages: torch.Tensor,        # (P, page, KH, D)
-    v_pages: torch.Tensor,
-    q_pos: torch.Tensor,          # (T,) int32
-    context_lens: torch.Tensor,   # (N,) int32
-    worklist: Sequence[torch.Tensor],   # WL_FIELDS order, each (W,) int32
-    units: Sequence[torch.Tensor],      # UNIT_FIELDS order, see build_units
-    *,
-    window: int = 0,
-    softcap: float = 0.0,
-    q_tile: int = 128,
-) -> torch.Tensor:
-    """Launch the fused MSA kernel, and the merge of the runs it cut, on
-    ``torch.cuda.current_stream()``.
-
-    Validates every argument (device, dtype, shape, contiguity, head_dim,
-    alignment) and raises on anything the kernel does not take; raises if
-    the launch reports an error.  ``q_tile`` is the work-list's q tile:
-    no unit has more rows.  Counts calls in ``msa_fused_cuda.launches``
-    (one a call: the kernel and its merge)."""
-    name = "msa_fused_cuda"
+def _launch(name: str, q, k_pages, v_pages, q_pos, context_lens,
+            worklist, units, *, window, softcap, q_tile, partial: bool):
+    """Check every argument (device, dtype, shape, contiguity, head_dim,
+    alignment), raising on anything the kernel does not take, then launch
+    the kernel and the merge of the runs it cut on
+    ``torch.cuda.current_stream()``; raise if the launch reports an error.
+    ``partial`` selects the (o, lse) mode.  Returns ``out`` (and ``lse``
+    in the (o, lse) mode)."""
     _build.check_attention_operands(name, q, k_pages, v_pages, q_dims=3)
     dev = q.device
     t, h, d = q.shape
@@ -303,21 +305,84 @@ def msa_fused_cuda(
         _build.check_i32(name, f, un[f], (size,), dev)
 
     lib = load_library()
-    out = torch.empty_like(q)
+    if partial:
+        out = torch.empty((t, h, d), dtype=torch.float32, device=dev)
+        lse = torch.empty((t, h), dtype=torch.float32, device=dev)
+    else:
+        out, lse = torch.empty_like(q), None
     part_o = torch.empty((RUN_UNITS, t, h, d), dtype=torch.float32,
                          device=dev)
     part_ml = torch.empty((RUN_UNITS, t, h, 2), dtype=torch.float32,
                           device=dev)
     ptrs = [x.data_ptr() for x in (
-        q, k_pages, v_pages, out, part_o, part_ml, context_lens, q_pos,
-        wl["wl_slot"], wl["wl_kvbase"], *(un[f] for f in UNIT_FIELDS))]
+        q, k_pages, v_pages, out, part_o, part_ml)]
+    ptrs.append(None if lse is None else lse.data_ptr())
+    ptrs += [x.data_ptr() for x in (
+        context_lens, q_pos, wl["wl_slot"], wl["wl_kvbase"],
+        *(un[f] for f in UNIT_FIELDS))]
     err = lib.msa_fused_launch(
         *ptrs, t, h, kh, d, page, min(q_tile, t), int(window),
         float(softcap), _build.DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on_error(lib, "msa_fused", err)
+    return out if lse is None else (out, lse)
+
+
+def msa_fused_cuda(
+    q: torch.Tensor,              # (T, H, D) bf16 | f32
+    k_pages: torch.Tensor,        # (P, page, KH, D)
+    v_pages: torch.Tensor,
+    q_pos: torch.Tensor,          # (T,) int32
+    context_lens: torch.Tensor,   # (N,) int32
+    worklist: Sequence[torch.Tensor],   # WL_FIELDS order, each (W,) int32
+    units: Sequence[torch.Tensor],      # UNIT_FIELDS order, see build_units
+    *,
+    window: int = 0,
+    softcap: float = 0.0,
+    q_tile: int = 128,
+) -> torch.Tensor:
+    """Launch the fused MSA kernel, and the merge of the runs it cut, on
+    ``torch.cuda.current_stream()``: the output ``(T, H, D)`` in q's type.
+
+    Raises on any argument the kernel does not take and if the launch
+    reports an error.  ``q_tile`` is the work-list's q tile: no unit has
+    more rows.  Counts calls in ``msa_fused_cuda.launches`` (one a call:
+    the kernel and its merge)."""
+    out = _launch("msa_fused_cuda", q, k_pages, v_pages, q_pos,
+                  context_lens, worklist, units, window=window,
+                  softcap=softcap, q_tile=q_tile, partial=False)
     msa_fused_cuda.launches += 1
     return out
 
 
 msa_fused_cuda.launches = 0
+
+
+def msa_fused_partial_cuda(
+    q: torch.Tensor,              # (T, H, D) bf16 | f32
+    k_pages: torch.Tensor,        # (P_loc, page, KH, D) — a shard's pool
+    v_pages: torch.Tensor,
+    q_pos: torch.Tensor,          # (T,) int32
+    context_lens: torch.Tensor,   # (N,) int32
+    worklist: Sequence[torch.Tensor],   # the shard's work-list (local slots)
+    units: Sequence[torch.Tensor],      # its work units
+    *,
+    window: int = 0,
+    softcap: float = 0.0,
+    q_tile: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (o, lse) mode of the same kernel, the per-shard term of sharded
+    serving (plain version ``ref.msa_fused_partial_ref``): attention over
+    the pages the shard's work-list names (``build_worklist(...,
+    page_valid=...)``), as float32 ``o`` (T, H, D), normalised by the
+    local softmax mass, and ``lse`` (T, H), NEG_INF on rows with no
+    visible local key.  Counts calls in
+    ``msa_fused_partial_cuda.launches``."""
+    out = _launch("msa_fused_partial_cuda", q, k_pages, v_pages, q_pos,
+                  context_lens, worklist, units, window=window,
+                  softcap=softcap, q_tile=q_tile, partial=True)
+    msa_fused_partial_cuda.launches += 1
+    return out
+
+
+msa_fused_partial_cuda.launches = 0

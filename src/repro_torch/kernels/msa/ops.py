@@ -2,8 +2,9 @@
 
 The device of the tensors picks the path: a CPU tensor runs the plain
 PyTorch version (``ref``), a CUDA tensor launches the hand-written kernel
-(``msa_fused_cuda``, ``msa_prefill_cuda``, ``msa_decode_cuda``) or
-raises.  There is no implementation switch and no fallback.
+(``msa_fused_cuda``, ``msa_fused_partial_cuda``, ``msa_prefill_cuda``,
+``msa_decode_cuda``) or raises.  There is no implementation switch and
+no fallback.
 
 Page ops work on the layer-stacked pools (L, P + 1, page, KH, D) in place
 (JAX donated the pools into its step and returned new ones).  Index P —
@@ -16,7 +17,8 @@ import torch
 
 from repro_torch.kernels.msa import ref
 from repro_torch.kernels.msa.msa_decode import msa_decode_cuda
-from repro_torch.kernels.msa.msa_fused import msa_fused_cuda
+from repro_torch.kernels.msa.msa_fused import (msa_fused_cuda,
+                                               msa_fused_partial_cuda)
 from repro_torch.kernels.msa.msa_prefill import msa_prefill_cuda
 
 
@@ -75,6 +77,28 @@ def msa_fused(q, k_pages, v_pages, block_tables, context_lens, q_pos,
     return msa_fused_cuda(q, k_pages, v_pages, q_pos, context_lens,
                           worklist, units, window=window, softcap=softcap,
                           q_tile=q_tile)
+
+
+def msa_fused_partial(q, k_pages, v_pages, block_tables, context_lens,
+                      q_pos, seq_ids, q_valid, page_valid, *, worklist=None,
+                      units=None, window: int = 0, softcap: float = 0.0,
+                      q_tile: int = 128):
+    """Per-shard partial of the fused dispatch: attention restricted to
+    the pages marked valid (the shard's local pages, ``block_tables``
+    holding local slots), in the normalised ``(o, lse)`` form the
+    cross-shard log-sum-exp merge consumes.  On the card the kernel's
+    (o, lse) mode runs the shard's work-list (``build_worklist(...,
+    page_valid=...)``) and its work units."""
+    if _on_cpu("msa_fused_partial", q):
+        return ref.msa_fused_partial_ref(
+            q, k_pages, v_pages, block_tables, context_lens, q_pos,
+            seq_ids, q_valid, page_valid, window=window, softcap=softcap)
+    if worklist is None or units is None:
+        raise ValueError("msa_fused_partial on cuda needs the shard's "
+                         "work-list and its work units")
+    return msa_fused_partial_cuda(q, k_pages, v_pages, q_pos, context_lens,
+                                  worklist, units, window=window,
+                                  softcap=softcap, q_tile=q_tile)
 
 
 write_kv_pages = ref.write_kv_pages

@@ -100,6 +100,67 @@ def msa_fused_ref(
     return out[:, 0]
 
 
+def msa_fused_partial_ref(
+    q: torch.Tensor,              # (T, H, D) flattened mixed token stream
+    k_pages: torch.Tensor,        # (P_loc, page, KH, D) — a LOCAL pool shard
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,   # (N, NP) int32 — LOCAL page ids
+    context_lens: torch.Tensor,   # (N,) int32
+    q_pos: torch.Tensor,          # (T,) int32
+    seq_ids: torch.Tensor,        # (T,) int32
+    q_valid: torch.Tensor,        # (T,) bool
+    page_valid: torch.Tensor,     # (N, NP) bool — False = page lives elsewhere
+    *,
+    window: int = 0,
+    softcap: float = 0.0,
+):
+    """Partial varlen MSA over a subset of each context's pages, in the
+    normalised ``(o, lse)`` form of the multi-segment / flash-decode
+    merge: ``o`` is the softmax-weighted V restricted to the valid pages,
+    ``lse`` the log-sum-exp of the restricted scores.  Each shard's local
+    pool is one segment subset; the shards' partials merge exactly
+    (``repro_torch.distributed.flash_decode.lse_merge``).
+
+    Rows with no valid visible key (all their keys live on other shards
+    or are masked) and invalid rows give ``lse = NEG_INF`` and ``o = 0``,
+    a zero-weight term of the merge.  Returns ``(o (T, H, D) f32, lse
+    (T, H) f32)``."""
+    t, h, d = q.shape
+    _, page, kh, _ = k_pages.shape
+    scale = 1.0 / math.sqrt(d)
+    sid = seq_ids.long()
+    bt = block_tables[sid]                              # (T, NP)
+    kf = _gather_kv(k_pages, bt).float()                # (T, S, KH, D)
+    vf = _gather_kv(v_pages, bt).float()
+    s_len = kf.shape[1]
+    qf = (q.float() * scale).reshape(t, kh, h // kh, d)
+    scores = torch.einsum("thgd,tshd->thgs", qf, kf)   # (T, KH, G, S)
+    if softcap > 0:
+        scores = softcap * torch.tanh(scores / softcap)
+
+    ctx = context_lens[sid]
+    kv_pos = torch.arange(s_len, dtype=torch.int32, device=q.device)
+    mask = kv_pos[None, :] < ctx[:, None]
+    rel = q_pos[:, None] - kv_pos[None, :]
+    mask = mask & (rel >= 0)
+    if window > 0:
+        mask = mask & (rel < window)
+    mask = mask & page_valid[sid].repeat_interleave(page, dim=1)
+    mask = (mask & q_valid[:, None])[:, None, None, :]  # (T, 1, 1, S)
+
+    scores = torch.where(mask, scores, NEG_INF)
+    m = scores.max(dim=-1).values                       # (T, KH, G)
+    p = torch.where(mask, torch.exp(scores - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    o = torch.einsum("thgs,tshd->thgd", p, vf)
+    o = o / torch.clamp(l, min=1e-30)[..., None]
+    # fully masked rows: l == 0, o already 0; lse pinned to NEG_INF so
+    # the merge gives them zero weight
+    lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)),
+                      NEG_INF)
+    return o.reshape(t, h, d), lse.reshape(t, h)
+
+
 def msa_decode_ref(
     q: torch.Tensor,              # (B, H, D) — one new token per sequence
     k_pages: torch.Tensor,        # (P, page, KH, D)

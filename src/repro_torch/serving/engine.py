@@ -45,8 +45,22 @@ with per-page-per-head scales ("q8") or fp8 codes ("f8") and dequantize
 on the device inside the step, and the KV writes may be snapped to the
 offload grid (``snap``), which makes the quantized round trip exact.
 The MLP sublayer of a MoE model runs ``moe_ffn_local`` over the
-reference's capacity layout.  Sharded serving comes with a later slice
-of the port.
+reference's capacity layout.
+
+Sharded serving (``shard_devices``, the counterpart of the reference's
+``mesh``): one process drives N shards (``repro_torch.distributed``).
+The page pool is cut into N contiguous runs of ``num_pages / N`` pages,
+one per shard (the block manager stripes every sequence's pages over
+them), and the weights are cut by the reference's serving rules
+(``shard_params``): each shard computes q/k/v on its own heads, the
+heads are gathered, each shard writes the KV of its own pages and runs
+the attention partial over them (the fused kernel's (o, lse) mode on the
+card), the partials meet in the exact log-sum-exp merge, ``wo`` and the
+MLP (or MoE) run on the shard's heads and ffn columns and are summed
+over the shards, and the vocab-sharded logits are gathered for the
+argmax.  Page ops carry per-shard queues of local indices; a copy
+between shards runs eagerly, device to device.  Fused layout, k = 1 and
+full-precision payloads only, as in the reference.
 """
 from __future__ import annotations
 
@@ -61,6 +75,10 @@ from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.offload import (HostHalf, dequantize_half, f8_codes,
                                       f8_values)
+from repro_torch.distributed import (ShardGroup, serving_param_shardings,
+                                     shard_params, sharded_msa_fused,
+                                     sharded_pool_ops)
+from repro_torch.distributed.flash_decode import shard_tables
 from repro_torch.kernels.msa import (
     UNIT_FIELDS,
     WL_FIELDS,
@@ -115,7 +133,7 @@ def derive_bucket_lattice(ecfg: "EngineConfig"
 
 
 def pack_layout_for(ecfg: "EngineConfig", t_bucket: int, np_bucket: int,
-                    w_bucket: int, n_iter: int = 1
+                    w_bucket: int, n_iter: int = 1, n_shards: int = 1
                     ) -> Tuple[List[Tuple[str, int, int]], int]:
     """(name, offset, size) triples of the flat int32 pack buffer for one
     occupancy bucket of the single-device layout, plus its total length.
@@ -128,8 +146,14 @@ def pack_layout_for(ecfg: "EngineConfig", t_bucket: int, np_bucket: int,
     copies of the fields that change between its iterations (tokens,
     positions, valid, the write coordinates, qlen, ctx, the work-list and
     the work units); seq_ids, sel, qstart, bt and the page-op queues are
-    shared.  The ``n_iter == 1`` layout is the single step's."""
+    shared.  The ``n_iter == 1`` layout is the single step's.
+
+    A sharded engine (``n_shards > 1``, fused, k = 1) carries one
+    work-list and one set of work units per shard, and per-shard page-op
+    queues of local indices (the reference's rows of ``copy_src`` etc.),
+    each ``n_shards`` times the single-device field."""
     e = ecfg
+    ns = n_shards
     R, B = e.max_prefills, e.max_decodes
     if e.attn_mode == "fused":
         t, n, k = t_bucket, R + B, n_iter
@@ -139,10 +163,11 @@ def pack_layout_for(ecfg: "EngineConfig", t_bucket: int, np_bucket: int,
                   ("write_off", k * t), ("seq_ids", t),
                   ("sel", R + B), ("qstart", n), ("qlen", k * n),
                   ("ctx", k * n), ("bt", n * np_bucket)]
-        fields += [(f, k * w_bucket) for f in WL_FIELDS]
+        fields += [(f, ns * k * w_bucket) for f in WL_FIELDS]
         u_b = unit_bucket(w_bucket, n_tiles)
-        fields += [(f, k * (2 if f == "unit_counts"
-                            else u_b // 2 if f.startswith("mg_") else u_b))
+        fields += [(f, ns * k * (2 if f == "unit_counts"
+                                 else u_b // 2 if f.startswith("mg_")
+                                 else u_b))
                    for f in UNIT_FIELDS]
     else:
         t, NP = R * e.max_chunk + B, e.max_blocks_per_seq
@@ -150,10 +175,10 @@ def pack_layout_for(ecfg: "EngineConfig", t_bucket: int, np_bucket: int,
                   ("write_slot", t), ("write_off", t), ("sel", R + B),
                   ("qlens", R), ("ctx_pre", R), ("ctx_dec", B),
                   ("bt_pre", R * NP), ("bt_dec", B * NP)]
-    fields += [("copy_src", e.max_instep_copies),
-               ("copy_dst", e.max_instep_copies),
-               ("swap_k_dst", e.max_instep_swaps),
-               ("swap_v_dst", e.max_instep_swaps)]
+    fields += [("copy_src", ns * e.max_instep_copies),
+               ("copy_dst", ns * e.max_instep_copies),
+               ("swap_k_dst", ns * e.max_instep_swaps),
+               ("swap_v_dst", ns * e.max_instep_swaps)]
     layout: List[Tuple[str, int, int]] = []
     off = 0
     for name, size in fields:
@@ -274,7 +299,12 @@ class StepHandle:
 
 class Engine:
     def __init__(self, cfg: ModelConfig, ecfg: EngineConfig, params,
-                 device="cuda"):
+                 device="cuda", shard_devices=None):
+        """``shard_devices`` (one device a shard; a device may repeat)
+        serves sharded over them, the counterpart of the reference's
+        ``mesh``; ``device`` is then not used.  ``params`` are the full
+        parameters, on any device when sharded (``shard_params`` copies
+        each shard's part to its device)."""
         if cfg.family not in ("dense", "moe", "vlm") or cfg.enc_dec:
             raise ValueError(f"the engine serves decoder-only token LMs, "
                              f"not family {cfg.family!r}")
@@ -291,11 +321,33 @@ class Engine:
             raise ValueError("snap='int8' needs snap_scale > 0")
         self.cfg = cfg
         self.ecfg = ecfg
-        self.device = resolve_device(device)
-        if params["embed"].device.type != self.device.type:
-            raise ValueError(f"params live on {params['embed'].device}, "
-                             f"the engine on {self.device}")
-        self.params = params
+        group = None if shard_devices is None else ShardGroup(shard_devices)
+        self.group = group if group is not None and group.n > 1 else None
+        self.n_shards = 1 if self.group is None else self.group.n
+        if self.n_shards > 1:
+            # as the reference asserts: the split layout predates the
+            # work-list metadata the partial needs, and quantized payloads
+            # need the single-device engine
+            if ecfg.attn_mode != "fused":
+                raise ValueError("sharded serving requires attn_mode "
+                                 "'fused'")
+            if ecfg.swap_payload != "fp" or ecfg.snap != "off":
+                raise ValueError("quantized offload requires the "
+                                 "single-device engine")
+            if ecfg.num_pages % self.n_shards:
+                raise ValueError(f"num_pages={ecfg.num_pages} does not "
+                                 f"divide over {self.n_shards} shards")
+            self.device = self.group.devices[0]
+            self.params = shard_params(params, cfg, self.group)
+            self.rules = serving_param_shardings(cfg, self.n_shards)[0]
+        else:
+            self.device = resolve_device(
+                device if group is None else group.devices[0])
+            if params["embed"].device.type != self.device.type:
+                raise ValueError(f"params live on "
+                                 f"{params['embed'].device}, the engine "
+                                 f"on {self.device}")
+            self.params = params
         self.dtype = torch_dtype(cfg.dtype)
         self._payload_fmt = ecfg.swap_payload
         # host dtype of a swap payload and its dtype on the device: the
@@ -313,11 +365,21 @@ class Engine:
         # page num_pages (one past the block manager's slots) is the drop
         # page: padding KV writes and padding swap-ins land there, and no
         # block table references it.  The pools are updated in place by
-        # every step (JAX donated them into its step instead).
-        self.k_pools = torch.zeros(
-            (L, ecfg.num_pages + 1, ecfg.page_size, cfg.n_kv_heads,
-             cfg.head_dim), dtype=self.dtype, device=self.device)
-        self.v_pools = torch.zeros_like(self.k_pools)
+        # every step (JAX donated them into its step instead).  Sharded:
+        # one (L, num_pages / N + 1, ...) pool a shard, its last page the
+        # shard's drop page.
+        self.p_loc = ecfg.num_pages // self.n_shards
+        pool_shape = (L, self.p_loc + 1, ecfg.page_size, cfg.n_kv_heads,
+                      cfg.head_dim)
+        if self.n_shards > 1:
+            self.k_pools = [torch.zeros(pool_shape, dtype=self.dtype,
+                                        device=d)
+                            for d in self.group.devices]
+            self.v_pools = [torch.zeros_like(k) for k in self.k_pools]
+        else:
+            self.k_pools = torch.zeros(pool_shape, dtype=self.dtype,
+                                       device=self.device)
+            self.v_pools = torch.zeros_like(self.k_pools)
         self.windows = _layer_windows(cfg, L)
         self.steps_executed = 0
         # distinct (t, np, w, k) buckets first seen (the reference counts
@@ -331,10 +393,16 @@ class Engine:
         self._pending_swap_v: List[Tuple[int, HostHalf]] = []
         # device-resident zero payload (in the wire dtype) and q8 scale
         # reused on swap-free steps (their destinations are all padded
-        # into the drop page anyway)
-        self._zero_swap = torch.zeros(
-            (L, ecfg.max_instep_swaps, ecfg.page_size, cfg.n_kv_heads,
-             cfg.head_dim), dtype=self._payload_dtype, device=self.device)
+        # into the drop page anyway); sharded: one a shard, on its device
+        zshape = (L, ecfg.max_instep_swaps, ecfg.page_size,
+                  cfg.n_kv_heads, cfg.head_dim)
+        if self.n_shards > 1:
+            zeros = {d: torch.zeros(zshape, dtype=self._payload_dtype,
+                                    device=d) for d in self.group.devices}
+            self._zero_swap = [zeros[d] for d in self.group.devices]
+        else:
+            self._zero_swap = torch.zeros(zshape, dtype=self._payload_dtype,
+                                          device=self.device)
         self._zero_scale = (torch.zeros(
             (L, ecfg.max_instep_swaps, cfg.n_kv_heads), dtype=torch.float32,
             device=self.device) if self._payload_fmt == "q8" else None)
@@ -369,7 +437,8 @@ class Engine:
         key = (t_bucket, np_bucket, w_bucket, n_iter)
         if key not in self._layouts:
             self._layouts[key] = pack_layout_for(self.ecfg, t_bucket,
-                                                 np_bucket, w_bucket, n_iter)
+                                                 np_bucket, w_bucket, n_iter,
+                                                 self.n_shards)
         return self._layouts[key]
 
     def buckets_for(self, plan: StepPlan) -> Tuple[int, int]:
@@ -415,8 +484,19 @@ class Engine:
         dispatch, or ``msa_prefill`` + ``msa_decode`` in split mode) ->
         wo -> MLP, then the final norm, the logits at ``sel`` and the
         greedy argmax on the device.  ``n_iter > 1`` runs the k fused
-        decode iterations of a multi-token plan instead."""
+        decode iterations of a multi-token plan instead.  A sharded engine
+        runs :meth:`_sharded_pass` over its shards."""
         e = self.ecfg
+        if self.n_shards > 1:
+            inps = [self._unpack(inp, t_bucket, np_bucket, w_bucket, 1,
+                                 shard=i) for i in range(self.n_shards)]
+            sharded_pool_ops(self.group, self.k_pools, self.v_pools, *(
+                [d[f] for d in inps] for f in (
+                    "swap_k_dst", "swap_v_dst", "swap_k", "swap_v",
+                    "copy_src", "copy_dst")))
+            x = self._sharded_pass(params, inps, t_bucket)
+            token_ids, logits = self._sharded_sample(params, x, inps)
+            return token_ids, logits[:e.max_prefills]
         inp = self._unpack(inp, t_bucket, np_bucket, w_bucket, n_iter)
         # swap-ins land first (they commit pages a COW fork in the same
         # round may use as its donor), then copies; both precede the KV
@@ -510,6 +590,11 @@ class Engine:
     def _mlp_sublayer(self, x, blocks, l: int) -> torch.Tensor:
         """Layer ``l``'s norm and MLP (SwiGLU, or the MoE over the
         reference's capacity layout), added to the residual ``x``."""
+        return x + self._mlp_out(x, blocks, l)
+
+    def _mlp_out(self, x, blocks, l: int) -> torch.Tensor:
+        """Layer ``l``'s norm and MLP of the residual ``x`` (on a shard:
+        its part of the sum over the ffn columns)."""
         cfg = self.cfg
         h2 = rms_norm(x, blocks["mlp_norm"][l], cfg.norm_eps)
         if cfg.moe is not None:
@@ -521,7 +606,7 @@ class Engine:
         else:
             y = swiglu_mlp(h2, blocks["w1"][l], blocks["w3"][l],
                            blocks["w2"][l])
-        return x + y
+        return y
 
     def _fused_pass(self, params, tokens, pos, valid, write_slot, write_off,
                     ctx, bt, seq_ids, worklist, units, t_bucket: int):
@@ -541,6 +626,105 @@ class Engine:
 
         return self._layers(params, tokens, pos, write_slot, write_off,
                             valid, attend)
+
+    def _sharded_pass(self, params, inps, t_bucket: int):
+        """The fused forward of a sharded step: per shard ``i``, its
+        weights ``params[i]`` and its view ``inps[i]`` of the step's
+        inputs; a value every shard holds is a list, one tensor a shard.
+        Per layer: norm, q/k/v on the shard's heads (rope on them), the
+        heads gathered, the KV write and the attention partial of each
+        shard's pages merged exactly (``sharded_msa_fused``), ``wo`` on
+        the shard's heads and the MLP on its ffn columns, each summed over
+        the shards.  Returns the residual before the final norm, per
+        shard."""
+        cfg, g = self.cfg, self.group
+        n, L = g.n, cfg.n_layers
+        hd = cfg.head_dim
+        col = {a: self.rules[a] == "model" for a in
+               ("heads", "kv_heads", "ffn", "expert_ffn")}
+        field = lambda name: [d[name] for d in inps]           # noqa: E731
+        pos = field("positions")
+        x = self._sharded_embed(params, field("tokens"))
+        tables = [shard_tables(i, self.p_loc, d["write_slot"], d["valid"],
+                               d["bt"]) for i, d in enumerate(inps)]
+        worklists = [tuple(d[f] for f in WL_FIELDS) for d in inps]
+        units = [tuple(d[f] for f in UNIT_FIELDS) for d in inps]
+        tq = min(self.ecfg.q_tile, t_bucket)
+
+        def project(hs, name, l, split):
+            out = []
+            for i in range(n):
+                w = params[i]["blocks"][name][l]
+                y = (hs[i] @ w.reshape(w.shape[0], -1)).view(
+                    hs[i].shape[0], -1, hd)
+                if name != "wv" and cfg.rope_theta > 0:
+                    y = apply_rope(y, pos[i], cfg.rope_theta)
+                out.append(y)
+            return g.all_gather(out, dim=1) if split else out
+
+        def reduce(ys, split):
+            return g.all_reduce_sum(ys) if split else ys
+
+        for l in range(L):
+            hs = [rms_norm(x[i], params[i]["blocks"]["attn_norm"][l],
+                           cfg.norm_eps) for i in range(n)]
+            q = project(hs, "wq", l, col["heads"])
+            k_new = project(hs, "wk", l, col["kv_heads"])
+            v_new = project(hs, "wv", l, col["kv_heads"])
+            attn = sharded_msa_fused(
+                g, q, [kp[l] for kp in self.k_pools],
+                [vp[l] for vp in self.v_pools], k_new, v_new,
+                field("write_slot"), field("write_off"), field("valid"),
+                field("bt"), field("ctx"), pos, field("seq_ids"),
+                window=self.windows[l], softcap=cfg.attn_logit_softcap,
+                worklists=worklists, units=units, q_tile=tq, tables=tables)
+            ys = []
+            for i in range(n):
+                wo = params[i]["blocks"]["wo"][l]        # (H or H/N, hd, d)
+                h0 = i * wo.shape[0] if col["heads"] else 0
+                a = attn[i][:, h0:h0 + wo.shape[0]].reshape(
+                    attn[i].shape[0], -1)
+                ys.append(a @ wo.reshape(-1, wo.shape[-1]))
+            ys = reduce(ys, col["heads"])
+            x = [x[i] + ys[i] for i in range(n)]
+            ys = [self._mlp_out(x[i], params[i]["blocks"], l)
+                  for i in range(n)]
+            ys = reduce(ys, col["expert_ffn"] if cfg.moe is not None
+                        else col["ffn"])
+            x = [x[i] + ys[i] for i in range(n)]
+        return x
+
+    def _sharded_embed(self, params, tokens):
+        """Embedding rows of ``tokens`` from a vocab-sharded table: each
+        shard looks up the ids in its range (zeros elsewhere) and the
+        shards' rows are summed (one non-zero term, so exact)."""
+        g = self.group
+        if self.rules["vocab"] != "model":
+            return [p["embed"][t.long()] for p, t in zip(params, tokens)]
+        rows = []
+        for i in range(g.n):
+            emb = params[i]["embed"]
+            local = tokens[i].long() - i * emb.shape[0]
+            ok = (local >= 0) & (local < emb.shape[0])
+            rows.append(torch.where(ok[:, None],
+                                    emb[local.clamp(0, emb.shape[0] - 1)],
+                                    0.0).to(emb.dtype))
+        return g.all_reduce_sum(rows)
+
+    def _sharded_sample(self, params, x, inps):
+        """Final norm and the logits at the ``sel`` rows on each shard's
+        vocab columns, gathered on the first shard's device for the greedy
+        argmax."""
+        cfg, g = self.cfg, self.group
+        logits = []
+        for i in range(g.n):
+            h = rms_norm(x[i], params[i]["final_norm"], cfg.norm_eps)
+            head = params[i]["embed"].T if cfg.tie_embeddings \
+                else params[i]["lm_head"]
+            logits.append(h[inps[i]["sel"].long()] @ head)
+        full = g.gather(logits, dim=-1) if self.rules["vocab"] == "model" \
+            else logits[0]
+        return torch.argmax(full, dim=-1).to(torch.int32), full
 
     def _sample(self, params, x, sel):
         """Final norm, the logits at the ``sel`` rows and the greedy
@@ -589,9 +773,14 @@ class Engine:
         the device in one copy, plus the two swap-payload buffers.  A
         multi-token plan gets one work-list and one set of work units an
         iteration, all padded to one shared W, so the bucket key stays
-        ``(t, np, w, k)``."""
+        ``(t, np, w, k)``.  A sharded engine builds one work-list and one
+        set of units a shard, over the shard's local pages, all padded to
+        one shared W, and moves the buffer to each shard's device."""
         t_b, np_b = self.buckets_for(plan)
         n_it = plan.decode_steps
+        if n_it > 1 and self.n_shards > 1:
+            raise ValueError("multi-token decode dispatch requires the "
+                             "fused single-device layout")
         if self.ecfg.attn_mode != "fused":
             if n_it > 1:
                 raise ValueError("multi-token decode dispatch requires the "
@@ -613,10 +802,19 @@ class Engine:
         # (k, ·) views of the per-iteration fields, k = 1 included
         qlen, ctx, pos = (fields[f].reshape(n_it, -1)
                           for f in ("qlen", "ctx", "positions"))
-        wls = [build_worklist(
-            fields["qstart"], qlen[i], ctx[i], fields["bt"], pos[i],
-            page=self.ecfg.page_size, q_tile=tq, n_tiles=n_tiles,
-            window=0)[0] for i in range(n_it)]
+        bt = fields["bt"]
+        # one work-list an (shard, iteration), in that order
+        wls = []
+        for sh in range(self.n_shards):
+            page_valid, table = None, bt
+            if self.n_shards > 1:
+                lo = sh * self.p_loc
+                page_valid = (bt >= lo) & (bt < lo + self.p_loc)
+                table = np.where(page_valid, bt - lo, 0)
+            wls += [build_worklist(
+                fields["qstart"], qlen[i], ctx[i], table, pos[i],
+                page=self.ecfg.page_size, q_tile=tq, n_tiles=n_tiles,
+                window=0, page_valid=page_valid)[0] for i in range(n_it)]
         w_b = max(WL_BUCKET, 1 << (max(
             wl["wl_seq"].shape[0] for wl in wls) - 1).bit_length())
         layout, size = self.pack_layout(t_b, np_b, w_b, n_it)
@@ -624,32 +822,49 @@ class Engine:
         views = {name: buf[off:off + size_] for name, off, size_ in layout}
         for name, arr in fields.items():
             views[name][:] = arr.reshape(-1)
-        for i, wl in enumerate(wls):
+        for j, wl in enumerate(wls):
+            i = j % n_it
             wl = pad_worklist(wl, w_b, sentinel_seq=self.n_seqs)
             units = build_units(
                 wl, fields["qstart"], qlen[i], n_rows=t_b, q_tile=tq,
                 n_tiles=n_tiles, pad_to=unit_bucket(w_b, n_tiles))
             for name, arr in (*wl.items(), *units.items()):
-                views[name].reshape(n_it, -1)[i] = arr
+                views[name].reshape(len(wls), -1)[j] = arr
         return self._pack_inputs(buf, views), (t_b, np_b, w_b)
 
     def _pack_inputs(self, buf: np.ndarray, views: Dict[str, np.ndarray]
                      ) -> Dict[str, torch.Tensor]:
         """Fold the queued page ops into the packed buffer and move it to
         the device in one copy, beside the two swap payloads and, in the
-        q8 wire format, their scales (None otherwise)."""
+        q8 wire format, their scales (None otherwise).  Sharded: one copy
+        of the buffer a distinct shard device, and per-shard payloads."""
+        if self.n_shards > 1:
+            ops = self._fold_page_ops_sharded(views)
+            pack = torch.from_numpy(buf)
+            on = {d: pack.to(d) for d in self.group.devices}
+            return {"pack": [on[d] for d in self.group.devices], **ops}
         ops = self._fold_page_ops(views)
         return {"pack": torch.from_numpy(buf).to(self.device), **ops}
 
     def _unpack(self, inp: Dict[str, torch.Tensor], t_bucket: int,
-                np_bucket: int, w_bucket: int,
-                n_iter: int = 1) -> Dict[str, torch.Tensor]:
+                np_bucket: int, w_bucket: int, n_iter: int = 1,
+                shard: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """Slices of the packed device buffer back into named step inputs
         (views of the one transferred buffer); a multi-token plan's
-        per-iteration fields fold out to (k, ·)."""
+        per-iteration fields fold out to (k, ·).  ``shard``: that shard's
+        view, from its device's buffer, with its own row of the (N, ·)
+        work-list, work-unit and page-op fields and its payloads."""
         layout, _ = self.pack_layout(t_bucket, np_bucket, w_bucket, n_iter)
-        buf = inp["pack"]
+        buf = inp["pack"] if shard is None else inp["pack"][shard]
         out = {name: buf[off:off + size] for name, off, size in layout}
+        if shard is not None:
+            for f in WL_FIELDS + UNIT_FIELDS + (
+                    "copy_src", "copy_dst", "swap_k_dst", "swap_v_dst"):
+                out[f] = out[f].view(self.n_shards, -1)[shard]
+            for name in ("swap_k", "swap_v"):
+                out[name] = inp[name][shard]
+            inp = {"swap_k_scale": None, "swap_v_scale": None,
+                   "swap_k": out["swap_k"], "swap_v": out["swap_v"]}
         out["valid"] = out["valid"].bool()
         e = self.ecfg
         if e.attn_mode == "fused":
@@ -966,6 +1181,86 @@ class Engine:
         return (payload.to(self.device),
                 torch.from_numpy(scale).to(self.device))
 
+    def _fold_page_ops_sharded(self, views: Dict[str, np.ndarray]
+                               ) -> Dict[str, object]:
+        """Per-shard routing of queued COW copies and swap-ins (the
+        reference's ``_fold_page_ops_sharded``).  Shard i's row of the
+        (N, C) copy and (N, S) swap fields holds shard-local page indices.
+        A copy whose source and destination live on different shards (a
+        device-to-device transfer) and per-shard overflow run eagerly.
+        Swap payloads: one (N, L, S, page, KH, D) host buffer when any
+        shard swaps in (``swap_bytes_shipped`` counts all of it, as the
+        reference ships it), row i moved to shard i's device; otherwise
+        the shards' zero payloads."""
+        e = self.ecfg
+        ns, ploc = self.n_shards, self.p_loc
+        C, S = e.max_instep_copies, e.max_instep_swaps
+        copies, self._pending_copies = self._pending_copies, []
+        per_c: List[List[Tuple[int, int]]] = [[] for _ in range(ns)]
+        eager_c: List[Tuple[int, int]] = []
+        for src, dst in copies:
+            s1, s2 = src // ploc, dst // ploc
+            if C > 0 and s1 == s2 and len(per_c[s1]) < C:
+                per_c[s1].append((src - s1 * ploc, dst - s1 * ploc))
+            else:
+                eager_c.append((src, dst))
+        self.instep_copies += len(copies) - len(eager_c)
+        self.eager_copies += len(eager_c)
+        if eager_c:
+            # eager copies run before this step while queued swap-ins land
+            # inside it: flush the swaps first (a same-round swap-in may be
+            # the donor of one of these forks)
+            self._flush_swaps_eager()
+            self.copy_pages(eager_c)
+        copy_src = views["copy_src"].reshape(ns, C)
+        copy_dst = views["copy_dst"].reshape(ns, C)
+        for i in range(ns):
+            # padding repeats the shard's last real local copy
+            # (idempotent) or is the local identity 0 -> 0
+            copy_src[i], copy_dst[i] = per_c[i][-1] if per_c[i] else (0, 0)
+            for j, (a, b) in enumerate(per_c[i]):
+                copy_src[i, j], copy_dst[i, j] = a, b
+        out: Dict[str, object] = {"swap_k_scale": None, "swap_v_scale": None}
+        kq, self._pending_swap_k = self._pending_swap_k, []
+        vq, self._pending_swap_v = self._pending_swap_v, []
+        cfg = self.cfg
+        for name, queue in (("k", kq), ("v", vq)):
+            dst = views[f"swap_{name}_dst"].reshape(ns, S)
+            dst[:] = ploc                       # each shard's drop page
+            per: List[List[Tuple[int, HostHalf]]] = [[] for _ in range(ns)]
+            for slot, half in queue:
+                sh = slot // ploc
+                if S > 0 and len(per[sh]) < S:
+                    per[sh].append((slot - sh * ploc, half))
+                    self.instep_swaps += 1
+                else:                           # per-shard overflow
+                    self.swap_in(slot, (half, None) if name == "k"
+                                 else (None, half))
+                    self.eager_swaps += 1
+            if not any(per):
+                out[f"swap_{name}"] = self._zero_swap
+                continue
+            buf = np.zeros((ns, cfg.n_layers, S, e.page_size,
+                            cfg.n_kv_heads, cfg.head_dim),
+                           self._payload_npdt)
+            for i in range(ns):
+                for j, (ls, half) in enumerate(per[i]):
+                    dst[i, j] = ls
+                    buf[i, :, j] = half.data
+            self.swap_bytes_shipped += buf.nbytes
+            payload = torch.from_numpy(buf).view(self._payload_dtype)
+            out[f"swap_{name}"] = [payload[i].to(d) for i, d in
+                                   enumerate(self.group.devices)]
+        return out
+
+    def _locate(self, slot: int) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """(K pools, V pools, page index) that hold global ``slot``: the
+        single-device pools, or the owning shard's."""
+        if self.n_shards == 1:
+            return self.k_pools, self.v_pools, slot
+        sh, local = divmod(slot, self.p_loc)
+        return self.k_pools[sh], self.v_pools[sh], local
+
     # -- copy-on-write page forks (cross-request prefix sharing) --------
     def queue_copies(self, pairs: List[Tuple[int, int]]) -> None:
         """Queue COW page copies ``src -> dst`` to be folded into the next
@@ -977,6 +1272,17 @@ class Engine:
         the overflow fallback when a round queues more forks than
         ``max_instep_copies``."""
         if not pairs:
+            return
+        if self.n_shards > 1:
+            # each pair where its pages live; a copy between shards is a
+            # device-to-device copy.  All sources are read before any
+            # write, as in the single-device gather.
+            halves = [(ks[:, i].clone(), vs[:, i].clone())
+                      for ks, vs, i in (self._locate(a) for a, _ in pairs)]
+            for (_, b), (kh, vh) in zip(pairs, halves):
+                kd, vd, j = self._locate(b)
+                kd[:, j] = kh.to(kd.device)
+                vd[:, j] = vh.to(vd.device)
             return
         src = torch.tensor([p[0] for p in pairs], dtype=torch.long,
                            device=self.device)
@@ -1011,18 +1317,19 @@ class Engine:
         clobber whatever the reallocated page holds by then."""
         kh = self._pop_queued(self._pending_swap_k, slot)
         vh = self._pop_queued(self._pending_swap_v, slot)
+        k_pools, v_pools, page_at = self._locate(slot)
 
         def read(pools):
-            page = pools[:, slot]
+            page = pools[:, page_at]
             if self._payload_fmt != "fp":
                 page = page.float()
             return _host_array(page)
 
         out_k = out_v = None
         if need_k:
-            out_k = kh if kh is not None else read(self.k_pools)
+            out_k = kh if kh is not None else read(k_pools)
         if need_v:
-            out_v = vh if vh is not None else read(self.v_pools)
+            out_v = vh if vh is not None else read(v_pools)
         return out_k, out_v
 
     @staticmethod
@@ -1053,10 +1360,11 @@ class Engine:
         operand order as the in-step ``_dequant_payload``, so both paths
         land the same pool bytes."""
         kh, vh = payload
-        for half, pools in ((kh, self.k_pools), (vh, self.v_pools)):
+        k_pools, v_pools, page_at = self._locate(slot)
+        for half, pools in ((kh, k_pools), (vh, v_pools)):
             if half is not None:
-                pools[:, slot] = dequantize_half(
-                    self._as_half(half), self.dtype).to(self.device)
+                pools[:, page_at] = dequantize_half(
+                    self._as_half(half), self.dtype).to(pools.device)
 
     # ------------------------------------------------------------------
     def perf_counters(self) -> Dict[str, object]:
@@ -1123,8 +1431,10 @@ class Engine:
                 self.params, inp, t_b, np_b, w_b, k)
         done = None
         if self.device.type == "cuda":
+            # sharded: the ids are gathered on the first shard's device,
+            # after every shard's work that feeds them
             done = torch.cuda.Event()
-            done.record()
+            done.record(torch.cuda.current_stream(self.device))
         self.steps_executed += 1
         key = (t_b, np_b, w_b, k)
         if key not in self.buckets_used:

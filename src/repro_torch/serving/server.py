@@ -25,7 +25,7 @@ import math
 import time
 from collections import deque
 from dataclasses import dataclass, field, replace
-from typing import Deque, Dict, List, Optional, Tuple
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -49,6 +49,7 @@ from repro_torch.core import (
     make_policy,
     model_fingerprint,
 )
+from repro_torch.distributed import make_serving_devices
 from repro_torch.serving.engine import Engine, EngineConfig, StepHandle
 from repro_torch.serving.request import Request, RequestState, SessionStats
 from repro_torch.serving.scheduler import ChunkingScheduler, SchedulerConfig, StepPlan
@@ -184,13 +185,14 @@ class ServerConfig:
     # "split" = the original padded prefill + decode two-dispatch layout
     # (the baseline benchmarks/kernel_fusion.py compares against).
     attn_mode: str = "fused"
-    # sharded multi-device serving: KV page pools sequence-shard over an
-    # n-way ("data"=1, "model"=n) mesh, weights shard by the decode
-    # sharding rules, and per-shard attention partials merge through the
-    # exact LSE combine (docs/ARCHITECTURE.md §Sharded serving).  Requires
-    # n visible devices (CPU: XLA_FLAGS=--xla_force_host_platform_
-    # device_count=N) and num_blocks % n_shards == 0.  1 = single-device.
+    # sharded serving: KV page pools sequence-shard over n shards (one
+    # process drives them, repro_torch.distributed), weights shard by the
+    # decode sharding rules, and per-shard attention partials merge
+    # through the exact LSE combine.  Requires n CUDA devices, or
+    # shard_devices (a device may repeat: ["cpu"] * n, ["cuda:0"] * n),
+    # and num_blocks % n_shards == 0.  1 = single-device.
     n_shards: int = 1
+    shard_devices: Optional[Sequence] = None
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     use_hit_count: bool = True
     # ---- fault injection + graceful degradation (core/faults.py) ----
@@ -266,22 +268,26 @@ class AsymCacheServer:
                 # quantized payload serving: the engine snaps KV writes to
                 # the grid (lossless mode) and dequantizes wire payloads
                 # inside the step
+                if scfg.n_shards > 1:
+                    raise ValueError("quantized swap payloads require "
+                                     "single-device serving")
                 ecfg = replace(
                     ecfg, swap_payload=scfg.offload.wire_format,
                     snap=scfg.offload.snap,
                     snap_scale=scfg.offload.clip / 127.0)
+            shard_devices = None
             if scfg.n_shards > 1:
-                raise NotImplementedError(
-                    "sharded serving (n_shards > 1) comes with the "
-                    "sharding slice of the port")
-            self.engine = Engine(cfg, ecfg, params, device=device)
+                shard_devices = make_serving_devices(scfg.n_shards,
+                                                     scfg.shard_devices)
+            self.engine = Engine(cfg, ecfg, params, device=device,
+                                 shard_devices=shard_devices)
             # the scheduler picks each step's occupancy bucket from its
             # §5.1 chunk decision — both sides must share one lattice
             self.sched.cfg.token_buckets = self.engine.token_buckets
             self.sched.cfg.page_buckets = self.engine.np_buckets
-            # multi-token decode dispatch is a fused-layout path; the
-            # split layout forces k = 1
-            if ecfg.attn_mode != "fused":
+            # multi-token decode dispatch is a fused single-device path;
+            # the split layout and sharded serving force k = 1
+            if scfg.n_shards > 1 or ecfg.attn_mode != "fused":
                 scfg.scheduler.max_decode_steps = 1
             # a queued COW copy / host-tier swap-in targets ONE step
             # boundary's pool state — k-step plans wait for empty queues

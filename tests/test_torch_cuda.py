@@ -81,7 +81,8 @@ def _step(rng, runs, ctx, *, page, P, H, KH, D, slack, q_tile, window=0):
         k=rng.standard_normal((P, page, KH, D)).astype(np.float32),
         v=rng.standard_normal((P, page, KH, D)).astype(np.float32),
         bt=bt, ctx=ctx, q_pos=q_pos, seq_ids=seq_ids, valid=valid,
-        wl=wl, units=units, q_tile=tq, real=real)
+        wl=wl, units=units, q_tile=tq, real=real, q_start=q_start,
+        q_len=q_len)
 
 
 def _case(rng, *, n_pre, n_dec, page, NP, P, H, KH, D, slack, q_tile,
@@ -730,3 +731,133 @@ def test_quantized_offload_on_card_is_bit_identical(dev, quant):
         assert a.sampled_ids == b.sampled_ids
         assert np.array_equal(a.first_logits, b.first_logits)
     assert 0 < bb <= 0.51 * ba
+
+
+# ---------------------------------------------------------------------------
+# sharded serving: the fused kernel's (o, lse) mode
+# ---------------------------------------------------------------------------
+
+def _partial_vs_plain(c, n, dtype, dev, *, window, softcap):
+    """Each of n shards' (o, lse) on the card (the shard's pages of a
+    P-page pool cut into n runs, its work-list built with ``page_valid``)
+    against ``msa_fused_partial_ref``: o and lse within the tolerance,
+    NEG_INF lse on the same rows, slack rows o = 0 and lse NEG_INF, the
+    same bits on a second launch; then the shards merged against the
+    full fused kernel.  Returns the worst error."""
+    from repro_torch.distributed import ShardGroup, lse_merge
+    from repro_torch.kernels.msa import msa_fused_partial
+    from repro_torch.kernels.msa.msa_fused import msa_fused_partial_cuda
+    from repro_torch.kernels.msa.ref import msa_fused_partial_ref
+    P = c["k"].shape[0]
+    assert P % n == 0
+    p_loc, page = P // n, c["k"].shape[1]
+    t = {k: torch.from_numpy(np.asarray(c[k])).to(dev)
+         for k in ("ctx", "q_pos", "seq_ids", "valid")}
+    q = torch.from_numpy(c["q"]).to(dev, dtype)
+    T, N = q.shape[0], c["bt"].shape[0]
+    tq = c["q_tile"]
+    n_tiles = -(-T // tq)
+    worst, parts, lses = 0.0, [], []
+    for i in range(n):
+        lo = i * p_loc
+        pv = (c["bt"] >= lo) & (c["bt"] < lo + p_loc)
+        table = np.where(pv, c["bt"] - lo, 0).astype(np.int32)
+        wl, count = build_worklist(c["q_start"], c["q_len"], c["ctx"], table,
+                                   c["q_pos"], page=page, q_tile=tq,
+                                   n_tiles=n_tiles, page_valid=pv)
+        wl = pad_worklist(wl, 1 << count.bit_length(), sentinel_seq=N)
+        units = build_units(wl, c["q_start"], c["q_len"], n_rows=T,
+                            q_tile=tq, n_tiles=n_tiles,
+                            pad_to=2 * count + n_tiles)
+        kp, vp = (torch.from_numpy(c[k][lo:lo + p_loc]).to(dev, dtype)
+                  for k in ("k", "v"))
+        args = (q, kp, vp, torch.from_numpy(table).to(dev), t["ctx"],
+                t["q_pos"], t["seq_ids"], t["valid"],
+                torch.from_numpy(pv).to(dev))
+        kw = dict(window=window, softcap=softcap)
+        wlt = tuple(torch.from_numpy(wl[f]).to(dev) for f in WL_FIELDS)
+        ut = tuple(torch.from_numpy(units[f]).to(dev) for f in UNIT_FIELDS)
+        before = msa_fused_partial_cuda.launches
+        (o, lse), (o2, lse2) = (msa_fused_partial(
+            *args, worklist=wlt, units=ut, q_tile=tq, **kw)
+            for _ in range(2))
+        torch.cuda.synchronize()
+        assert msa_fused_partial_cuda.launches == before + 2
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        wo, wlse = msa_fused_partial_ref(*args, **kw)
+        assert o.dtype == lse.dtype == torch.float32
+        none = wlse <= -1e38
+        assert torch.equal(lse <= -1e38, none)
+        assert torch.all(o[c["real"]:] == 0) and torch.all(
+            lse[c["real"]:] <= -1e38)
+        worst = max(worst, float((o - wo).abs().max()),
+                    float((lse - wlse).abs()[~none].max())
+                    if (~none).any() else 0.0)
+        parts.append(o)
+        lses.append(lse)
+    merged = lse_merge(ShardGroup([dev] * n), parts, lses)[0].to(dtype)
+    full = msa_fused_ref(q, *(torch.from_numpy(c[k]).to(dev, dtype)
+                              for k in ("k", "v")),
+                         torch.from_numpy(c["bt"]).to(dev), t["ctx"],
+                         t["q_pos"], t["seq_ids"], t["valid"],
+                         window=window, softcap=softcap)
+    return max(worst, float((merged.float() - full.float()).abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (6, 0.0), (0, 20.0)])
+@pytest.mark.parametrize("D,page", [(16, 8), (128, 16)])
+def test_partial_kernel_matches_plain_on_card(dev, dtype, n, window,
+                                              softcap, D, page):
+    """Small steps (window 6 below a page: rows whose local keys are all
+    masked; one-page sequences: shards with no page of theirs) and
+    contexts long enough to cut runs into work units."""
+    rng = np.random.default_rng(n * 10 + window + D)
+    c = _case(rng, n_pre=2, n_dec=4, page=page, NP=40, P=160, H=8, KH=2,
+              D=D, slack=11, q_tile=16)
+    err = _partial_vs_plain(c, n, dtype, dev, window=window,
+                            softcap=softcap)
+    assert err <= TOL[dtype], err
+
+
+def test_sharded_engine_on_card_matches_single_device(dev):
+    """The port's server sharded 2 ways over this card against the
+    single-device server on it (float32 smoke model, evictions and
+    host-tier swaps): the same tokens and steps, each shard's attention
+    through the (o, lse) mode once a layer a step and the fused mode
+    never, first logits within 1e-4 of their scale."""
+    from repro_torch.configs import get_smoke_config, scaled_config
+    from repro_torch.kernels.msa.msa_fused import msa_fused_partial_cuda
+    from repro_torch.models import init_params
+    from repro_torch.serving import (AsymCacheServer, EngineConfig,
+                                     SchedulerConfig, ServerConfig,
+                                     WorkloadConfig, multi_turn_workload)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = scaled_config(get_smoke_config("llama31-8b"), dtype="float32")
+    params = init_params(cfg, seed=0, device=dev)
+    runs = []
+    for n in (1, 2):
+        scfg = ServerConfig(num_blocks=32, block_size=16, clock="model",
+                            host_blocks=16, n_shards=n,
+                            shard_devices=[dev] * n if n > 1 else None,
+                            scheduler=SchedulerConfig(
+                                token_budget=128, max_chunk=64,
+                                max_prefills=2, max_decodes=8))
+        ecfg = EngineConfig(num_pages=32, page_size=16, max_prefills=2,
+                            max_chunk=64, max_decodes=8)
+        wl = multi_turn_workload(WorkloadConfig(
+            n_sessions=3, turns_per_session=(2, 3), first_ctx_len=(96, 180),
+            output_len=(12, 30), qps=1.0, seed=3))
+        srv = AsymCacheServer(cfg, params, scfg, ecfg=ecfg, device=dev)
+        fused0 = msa_fused_cuda.launches
+        part0 = msa_fused_partial_cuda.launches
+        res = srv.run(wl)
+        runs.append((wl, res, msa_fused_cuda.launches - fused0,
+                     msa_fused_partial_cuda.launches - part0))
+    (w1, r1, f1, p1), (w2, r2, f2, p2) = runs
+    assert r2["steps"] == r1["steps"] and r2["evictions"] == r1["evictions"]
+    assert (f1, p1) == (cfg.n_layers * r1["steps"], 0)
+    assert (f2, p2) == (0, 2 * cfg.n_layers * r2["steps"])
+    _same_results(w2, w1)

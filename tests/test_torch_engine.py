@@ -19,7 +19,7 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_smoke_config, scaled_config
 from repro_torch.kernels.msa import (UNIT_FIELDS, WL_FIELDS, build_units,
                                      pad_worklist)
-from repro_torch.models import init_params
+from repro_torch.models import forward, init_params
 from repro_torch.serving.engine import (derive_bucket_lattice,
                                         pack_layout_for, unit_bucket)
 
@@ -263,10 +263,20 @@ def test_instep_and_eager_page_ops_leave_identical_pools():
 
 
 def test_later_slices_raise_not_implemented(small):
-    """Sharded serving is the one path a later slice brings."""
+    """What a later slice brings raises: the full model's other families
+    (an SSM model's parameters and forward).  Sharded serving is served
+    (``tests/test_torch_sharded.py``); without its devices it refuses to
+    pick any."""
     cfg, _, tp = small
+    ssm = scaled_config(get_smoke_config("mamba2-780m"), dtype="float32")
     with pytest.raises(NotImplementedError):
-        P.AsymCacheServer(cfg, tp, P.ServerConfig(n_shards=2), device="cpu")
+        init_params(ssm, device="cpu")
+    with pytest.raises(NotImplementedError):
+        forward(tp, ssm, torch.zeros((1, 4), dtype=torch.long))
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError):
+            P.AsymCacheServer(cfg, tp, P.ServerConfig(n_shards=2),
+                              device="cpu")
 
 
 def test_entry_points_default_to_the_card():

@@ -1,0 +1,617 @@
+"""Port vs reference for sharded serving: the per-shard attention partial
+(``msa_fused_partial_ref``), the page-sharded attention and its exact
+log-sum-exp merge, the per-shard page ops and their queues, the weight
+split (rules, parameter axes, ``shard_params``, the bridge), and the
+sharded engine served on N CPU "devices" (``shard_devices=["cpu"] * N``)
+against the JAX package's single-device engine.
+
+The JAX package's own sharded engine cannot run here (``shard_map`` no
+longer takes ``check_rep`` under this jax), so the port's sharded path is
+held to the reference's pure functions, its single-device engine and the
+port's own single-device engine.  Inputs come from numpy seeds.
+Tolerances: 1e-6 for the partial (float32, two frameworks' summation
+orders of the same products), 1e-5 for the merged attention (the bound of
+the reference's ``test_sharded_attention_unit_equivalence``), 1e-4 of the
+scale for first logits (the reference's own gate), 2e-3 against the dense
+forward (the repo-wide losslessness bar); pools, page-op fields, tokens
+and sampled ids exactly."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.serving as J
+import repro_torch.serving as P
+from repro.configs import get_smoke_config as j_smoke
+from repro.configs import scaled_config as j_scaled
+from repro.core.offload import HostHalf as JHalf
+from repro.distributed.sharding import sharding_rules as j_rules
+from repro.kernels.msa.ref import msa_fused_partial_ref as j_partial
+from repro.kernels.msa.ref import msa_fused_ref as j_fused
+from repro.kernels.msa.ref import write_kv_pages as j_write
+from repro.models import init_params as j_init
+from repro.models.model import param_axes as j_param_axes
+from repro.serving.engine import Engine as JEngine
+from repro_torch.bridge import params_from_numpy
+from repro_torch.configs import get_smoke_config, scaled_config
+from repro_torch.core import OffloadConfig
+from repro_torch.core.offload import HostHalf
+from repro_torch.distributed import (ShardGroup, lse_merge,
+                                     make_serving_devices, param_axes,
+                                     serving_param_shardings, shard_params,
+                                     sharded_msa_fused, sharded_pool_ops,
+                                     sharding_rules)
+from repro_torch.kernels.msa import (apply_page_copies, apply_swap_ins,
+                                     build_worklist)
+from repro_torch.kernels.msa.ref import NEG_INF
+from repro_torch.kernels.msa.ref import msa_fused_partial_ref as t_partial
+from repro_torch.models import init_params
+
+PARTIAL_TOL = 1e-6
+ATTN_TOL = 1e-5
+LOGIT_REL_TOL = 1e-4
+LOSSLESS_REL_TOL = 2e-3       # the repo-wide losslessness bar
+ARCHS = ("llama31-8b", "grok-1-314b", "gemma3-12b")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module.  A sharded step is many small
+    ops; with a thread a core in every test worker the workers' threads
+    fight for the cores (four copies of one engine test side by side took
+    745 s with PyTorch's default threads and 26 s with one each)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _rel(a, b):
+    return float(np.max(np.abs(a - b))) / max(1e-9, float(np.max(np.abs(b))))
+
+
+def _cpu(n):
+    return ShardGroup(["cpu"] * n)
+
+
+def _attn_inputs(seed, Pg=16, page=4, KH=2, D=8, H=4, T=12, N=5, NP=6):
+    """The reference unit test's inputs (``test_sharded_attention_unit_
+    equivalence``), from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    kp = rng.normal(size=(Pg, page, KH, D)).astype(np.float32)
+    vp = rng.normal(size=(Pg, page, KH, D)).astype(np.float32)
+    q = rng.normal(size=(T, H, D)).astype(np.float32)
+    kn = rng.normal(size=(T, KH, D)).astype(np.float32)
+    vn = rng.normal(size=(T, KH, D)).astype(np.float32)
+    bt = rng.integers(0, Pg, size=(N, NP)).astype(np.int32)
+    ctx = rng.integers(1, NP * page, size=(N,)).astype(np.int32)
+    sid = rng.integers(0, N, size=(T,)).astype(np.int32)
+    pos = np.minimum(rng.integers(0, NP * page, size=(T,)),
+                     ctx[sid] - 1).astype(np.int32)
+    valid = rng.random(T) < 0.8
+    ws = rng.integers(0, Pg, size=(T,)).astype(np.int32)
+    wo = rng.integers(0, page, size=(T,)).astype(np.int32)
+    return dict(kp=kp, vp=vp, q=q, kn=kn, vn=vn, bt=bt, ctx=ctx, sid=sid,
+                pos=pos, valid=valid, ws=ws, wo=wo)
+
+
+# ---------------------------------------------------------------------------
+# the partial and the merge
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (7, 0.0), (0, 30.0),
+                                            (7, 30.0)])
+def test_partial_ref_matches_jax(window, softcap):
+    """Rows with no valid page (sequence 0's pages all live elsewhere)
+    and invalid rows come out as o = 0, lse = NEG_INF on both sides."""
+    x = _attn_inputs(0)
+    rng = np.random.default_rng(1)
+    page_valid = rng.random(x["bt"].shape) < 0.5
+    page_valid[0] = False
+    args = (x["q"], x["kp"], x["vp"], x["bt"], x["ctx"], x["pos"], x["sid"],
+            x["valid"], page_valid)
+    jo, jl = j_partial(*map(jnp.asarray, args), window=window,
+                       softcap=softcap)
+    to, tl = t_partial(*map(torch.from_numpy, args), window=window,
+                       softcap=softcap)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=0,
+                               atol=PARTIAL_TOL)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                               atol=PARTIAL_TOL)
+    none = tl.numpy() == np.float32(NEG_INF)
+    assert none[x["sid"] == 0].all() and none[~x["valid"]].all()
+    assert (to.numpy()[none] == 0).all()
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (7, 5.0)])
+def test_sharded_attention_matches_jax_fused_ref(n, window, softcap):
+    """``sharded_msa_fused`` over n CPU shards against the JAX package's
+    single-device ``msa_fused_ref``, and the shards' pools, concatenated,
+    bit-equal to the single-device ``write_kv_pages``."""
+    x = _attn_inputs(0)
+    Pg, p_loc = x["kp"].shape[0], x["kp"].shape[0] // n
+    kp1, vp1 = j_write(*map(jnp.asarray, (x["kp"], x["vp"], x["kn"],
+                                          x["vn"], x["ws"], x["wo"],
+                                          x["valid"])))
+    ref = np.asarray(j_fused(
+        jnp.asarray(x["q"]), kp1, vp1, *map(jnp.asarray, (
+            x["bt"], x["ctx"], x["pos"], x["sid"], x["valid"])),
+        window=window, softcap=softcap))
+    drop = np.zeros((1,) + x["kp"].shape[1:], np.float32)
+    pools = {name: [torch.from_numpy(np.concatenate(
+        [x[name][i * p_loc:(i + 1) * p_loc], drop])) for i in range(n)]
+        for name in ("kp", "vp")}
+    rep = lambda a: [torch.from_numpy(a)] * n                  # noqa: E731
+    attn = sharded_msa_fused(
+        _cpu(n), rep(x["q"]), pools["kp"], pools["vp"], rep(x["kn"]),
+        rep(x["vn"]), rep(x["ws"]), rep(x["wo"]), rep(x["valid"]),
+        rep(x["bt"]), rep(x["ctx"]), rep(x["pos"]), rep(x["sid"]),
+        window=window, softcap=softcap)
+    for a in attn:
+        np.testing.assert_allclose(a.numpy(), ref, rtol=0, atol=ATTN_TOL)
+    for got, want in ((pools["kp"], kp1), (pools["vp"], vp1)):
+        cat = torch.cat([p[:p_loc] for p in got]).numpy()
+        assert cat.shape[0] == Pg
+        np.testing.assert_array_equal(cat, np.asarray(want))
+
+
+def test_lse_merge_of_identical_and_empty_partials():
+    """Identical partials merge to themselves; rows every shard saw fully
+    masked merge to exact zeros."""
+    rng = np.random.default_rng(2)
+    o = torch.from_numpy(rng.normal(size=(6, 4, 8)).astype(np.float32))
+    lse = torch.from_numpy(rng.normal(size=(6, 4)).astype(np.float32))
+    o[2], lse[2] = 0.0, NEG_INF
+    for n in (1, 2, 4):
+        out = lse_merge(_cpu(n), [o] * n, [lse] * n)
+        assert len(out) == n
+        np.testing.assert_allclose(out[0].numpy(), o.numpy(), rtol=1e-6,
+                                   atol=1e-7)
+        assert (out[-1][2] == 0).all()
+
+
+def test_worklist_page_valid_leaves_out_remote_pages():
+    """All pages valid: the reference's work-list.  A shard's mask: only
+    its pages, addressed by the table given (the shard's local slots)."""
+    rng = np.random.default_rng(3)
+    N, NP, page, T = 3, 5, 4, 16
+    bt = rng.permutation(16)[:N * NP].reshape(N, NP).astype(np.int32)
+    q_len = np.asarray([6, 1, 1], np.int32)
+    q_start = np.asarray([0, 6, 7], np.int32)
+    ctx = np.asarray([20, 13, 7], np.int32)
+    q_pos = np.zeros(T, np.int32)
+    q_pos[:8] = [14, 15, 16, 17, 18, 19, 12, 6]
+    kw = dict(page=page, q_tile=4, n_tiles=4)
+    full, _ = build_worklist(q_start, q_len, ctx, bt, q_pos, **kw)
+    same, _ = build_worklist(q_start, q_len, ctx, bt, q_pos, **kw,
+                             page_valid=np.ones((N, NP), bool))
+    for f in full:
+        np.testing.assert_array_equal(full[f], same[f])
+    local = (bt >= 8)
+    table = np.where(local, bt - 8, 0).astype(np.int32)
+    part, count = build_worklist(q_start, q_len, ctx, table, q_pos, **kw,
+                                 page_valid=local)
+    keep = (full["wl_seq"] < N) & (full["wl_slot"] >= 8)
+    real = part["wl_seq"] < N
+    assert 0 < real.sum() == keep.sum() < (full["wl_seq"] < N).sum()
+    for f in ("wl_seq", "wl_qtile", "wl_kvbase"):
+        np.testing.assert_array_equal(part[f][real], full[f][keep])
+    np.testing.assert_array_equal(part["wl_slot"][real],
+                                  full["wl_slot"][keep] - 8)
+    assert count == part["wl_seq"].shape[0]
+
+
+# ---------------------------------------------------------------------------
+# page ops
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_pool_ops_match_single_device(n):
+    """Swap-ins and COW copies routed to each shard's local indices leave
+    the same pool bits as the single-device ops on global indices."""
+    rng = np.random.default_rng(4)
+    L, NB, page, KH, D, S, C = 2, 32, 4, 2, 8, 3, 3
+    p_loc = NB // n
+    gk = torch.from_numpy(rng.normal(size=(L, NB + 1, page, KH, D))
+                          .astype(np.float32))
+    gv = torch.from_numpy(rng.normal(size=gk.shape).astype(np.float32))
+    shards_k = [torch.cat([gk[:, i * p_loc:(i + 1) * p_loc], gk[:, NB:]],
+                          dim=1) for i in range(n)]
+    shards_v = [torch.cat([gv[:, i * p_loc:(i + 1) * p_loc], gv[:, NB:]],
+                          dim=1) for i in range(n)]
+    k_dst = np.full((n, S), p_loc, np.int32)
+    v_dst = np.full((n, S), p_loc, np.int32)
+    pay_k = rng.normal(size=(n, L, S, page, KH, D)).astype(np.float32)
+    pay_v = rng.normal(size=pay_k.shape).astype(np.float32)
+    c_src = np.zeros((n, C), np.int32)
+    c_dst = np.zeros((n, C), np.int32)
+    g_swaps_k, g_swaps_v, g_copies = [], [], []
+    for i in range(n):
+        slots = rng.permutation(p_loc)
+        k_dst[i, :2] = slots[:2]
+        v_dst[i, :1] = slots[2]
+        c_src[i, :2], c_dst[i, :2] = slots[3:5], slots[5:7]
+        c_src[i, 2:], c_dst[i, 2:] = c_src[i, 1], c_dst[i, 1]   # padding
+        g_swaps_k += [(i * p_loc + s, pay_k[i, :, j])
+                      for j, s in enumerate(k_dst[i, :2])]
+        g_swaps_v += [(i * p_loc + v_dst[i, 0], pay_v[i, :, 0])]
+        g_copies += [(i * p_loc + a, i * p_loc + b)
+                     for a, b in zip(c_src[i, :2], c_dst[i, :2])]
+    sharded_pool_ops(_cpu(n), shards_k, shards_v,
+                     *(list(map(torch.from_numpy, a)) for a in (
+                         k_dst, v_dst, pay_k, pay_v, c_src, c_dst)))
+
+    def glob(pays):
+        d = np.full(len(pays) + 1, NB, np.int32)
+        d[:len(pays)] = [s for s, _ in pays]
+        p = np.zeros((L, len(pays) + 1, page, KH, D), np.float32)
+        for j, (_, x) in enumerate(pays):
+            p[:, j] = x
+        return torch.from_numpy(d), torch.from_numpy(p)
+
+    (kd, kp_), (vd, vp_) = glob(g_swaps_k), glob(g_swaps_v)
+    apply_swap_ins(gk, gv, kd, vd, kp_, vp_)
+    src = torch.tensor([a for a, _ in g_copies], dtype=torch.int32)
+    dst = torch.tensor([b for _, b in g_copies], dtype=torch.int32)
+    apply_page_copies(gk, gv, src, dst)
+    for shards, g in ((shards_k, gk), (shards_v, gv)):
+        cat = torch.cat([s[:, :p_loc] for s in shards], dim=1)
+        assert torch.equal(cat, g[:, :NB])
+
+
+def _queues(rng, n, NB, C, S, L, page, KH, D, cross):
+    """Random page-op queues over an NB-page pool: copies within shards
+    (some past C a shard) and, with ``cross``, between shards; K and V
+    swap-ins (some past S a shard).  The same queues in both packages'
+    half types."""
+    p_loc = NB // n
+    copies = []
+    for _ in range(rng.integers(1, 3 * C)):
+        sh = rng.integers(n)
+        a, b = rng.choice(p_loc, 2, replace=False)
+        copies.append((int(sh * p_loc + a), int(sh * p_loc + b)))
+    if cross:
+        copies.append((1, NB - 1))
+    swaps = {}
+    for name in ("k", "v"):
+        slots = rng.choice(NB, int(rng.integers(0, 2 * S * n)),
+                           replace=False)
+        swaps[name] = [(int(s), rng.normal(size=(L, page, KH, D))
+                        .astype(np.float32)) for s in slots]
+    return copies, swaps
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("seed,cross", [(0, False), (1, True), (2, True),
+                                        (3, False)])
+def test_fold_page_ops_sharded_matches_reference(n, seed, cross):
+    """The port's ``_fold_page_ops_sharded`` against the reference's, run
+    on a stub of the JAX engine (it needs no mesh): the same local
+    indices and padding in every shard's row, the same eager overflow and
+    cross-shard copies (which flush the queued swaps first), the same
+    counters and the same payload rows."""
+    cfg = scaled_config(get_smoke_config("llama31-8b"), dtype="float32")
+    NB, C, S = 32, 2, 2
+    L, page, KH, D = cfg.n_layers, 16, cfg.n_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(seed)
+    copies, swaps = _queues(rng, n, NB, C, S, L, page, KH, D, cross)
+
+    ecfg = P.EngineConfig(num_pages=NB, page_size=page, max_instep_copies=C,
+                          max_instep_swaps=S)
+    eng = P.Engine(cfg, ecfg, init_params(cfg, device="cpu"),
+                   shard_devices=["cpu"] * n)
+    stub = object.__new__(JEngine)
+    stub.ecfg = J.EngineConfig(num_pages=NB, page_size=page,
+                               max_instep_copies=C, max_instep_swaps=S)
+    stub.cfg, stub.n_shards = cfg, n
+    stub._payload_npdt = np.dtype(np.float32)
+    stub._zero_swap = "zero"
+    logs = {"port": [], "ref": []}
+    for e, half, log in ((eng, HostHalf, logs["port"]),
+                         (stub, JHalf, logs["ref"])):
+        e.instep_copies = e.eager_copies = e.instep_swaps = 0
+        e.eager_swaps = e.swap_bytes_shipped = 0
+        e._pending_copies = list(copies)
+        e._pending_swap_k, e._pending_swap_v = (
+            [(s, half(data=d, scale=None, nbytes=d.nbytes, fmt="fp"))
+             for s, d in swaps[name]] for name in ("k", "v"))
+        e.copy_pages = (lambda log: lambda pairs: log.append(
+            ("copy", list(pairs))))(log)
+        e.swap_in = (lambda log: lambda slot, pl: log.append(
+            ("swap", slot, [None if h is None else h.data.tobytes()
+                            for h in pl])))(log)
+    views = {f: np.zeros(n * size, np.int32) for f, size in (
+        ("copy_src", C), ("copy_dst", C), ("swap_k_dst", S),
+        ("swap_v_dst", S))}
+    j_views = {f: v.copy() for f, v in views.items()}
+    got = eng._fold_page_ops_sharded(views)
+    want = stub._fold_page_ops_sharded(j_views)
+    for f in views:
+        np.testing.assert_array_equal(views[f], j_views[f])
+    assert logs["port"] == logs["ref"]
+    for c in ("instep_copies", "eager_copies", "instep_swaps",
+              "eager_swaps", "swap_bytes_shipped"):
+        assert getattr(eng, c) == getattr(stub, c), c
+    if cross:       # the cross-shard copy ran eagerly, after the flush
+        assert any(e[0] == "copy" and (1, NB - 1) in e[1]
+                   for e in logs["port"])
+    for name in ("k", "v"):
+        if isinstance(want[f"swap_{name}"], str):
+            assert got[f"swap_{name}"] is eng._zero_swap
+            continue
+        for i in range(n):
+            np.testing.assert_array_equal(got[f"swap_{name}"][i].numpy(),
+                                          want[f"swap_{name}"][i])
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_eager_page_ops_route_to_the_owning_shard(n):
+    """Eager copies (within and between shards), swap-ins and swap-outs
+    on global slots leave the sharded pools, concatenated, as the
+    single-device engine's, and read back the same pages."""
+    cfg = scaled_config(get_smoke_config("llama31-8b"), dtype="bfloat16")
+    params = init_params(cfg, device="cpu")
+    NB = 16
+    ecfg = P.EngineConfig(num_pages=NB, page_size=16)
+    one = P.Engine(cfg, ecfg, params, device="cpu")
+    sh = P.Engine(cfg, ecfg, params, shard_devices=["cpu"] * n)
+    gen = torch.Generator().manual_seed(0)
+    for pools in (one.k_pools, one.v_pools):
+        pools.copy_(torch.randn(pools.shape, generator=gen))
+    p_loc = NB // n
+    for i in range(n):
+        sh.k_pools[i][:, :p_loc] = one.k_pools[:, i * p_loc:(i + 1) * p_loc]
+        sh.v_pools[i][:, :p_loc] = one.v_pools[:, i * p_loc:(i + 1) * p_loc]
+    pairs = [(0, 1), (2, NB - 1), (NB - 2, 3)]       # the last two cross
+    kh, vh = one.swap_out(5)
+    for e in (one, sh):
+        e.copy_pages(pairs)
+        e.swap_in(7, (kh, None))
+        e.swap_in(NB - 3, (None, vh))
+    for pools, got in ((one.k_pools, sh.k_pools), (one.v_pools, sh.v_pools)):
+        assert torch.equal(torch.cat([g[:, :p_loc] for g in got], dim=1),
+                           pools[:, :NB])
+    for slot in (1, NB - 1, 7, NB - 3):
+        for a, b in zip(one.swap_out(slot), sh.swap_out(slot)):
+            np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the weight split
+# ---------------------------------------------------------------------------
+
+class _StubMesh:
+    def __init__(self, n):
+        self.shape = {"data": 1, "model": n}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharding_rules_match_reference(arch, n):
+    cfg = get_smoke_config(arch)
+    for kind in ("decode", "prefill", "train"):
+        assert sharding_rules(cfg, n, kind) == j_rules(
+            cfg, _StubMesh(n), kind)
+    rules, specs = serving_param_shardings(cfg, n)
+    assert rules == j_rules(cfg, _StubMesh(n), "decode")
+    assert param_axes(cfg) == j_param_axes(j_smoke(arch))
+    assert specs["blocks"]["wq"][2] == ("model" if cfg.n_heads % n == 0
+                                        else None)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("n", [2, 4])
+def test_shard_params_concatenate_back(arch, n):
+    """Each split tensor is cut on its one "model" dim into contiguous
+    pieces that concatenate back bit for bit; the rest is replicated."""
+    cfg = scaled_config(get_smoke_config(arch), dtype="float32")
+    params = init_params(cfg, seed=3, device="cpu")
+    parts = shard_params(params, cfg, _cpu(n))
+    _, specs = serving_param_shardings(cfg, n)
+    n_split = 0
+
+    def walk(full, pieces, spec):
+        nonlocal n_split
+        for name, value in full.items():
+            if isinstance(value, dict):
+                walk(value, [p[name] for p in pieces], spec[name])
+                continue
+            got = [p[name] for p in pieces]
+            assert all(g.is_contiguous() for g in got)
+            if "model" in spec[name]:
+                n_split += 1
+                dim = spec[name].index("model")
+                assert torch.equal(torch.cat(got, dim=dim), value)
+            else:
+                assert all(g is value for g in got)
+
+    walk(params, parts, specs)
+    assert n_split >= 5
+
+
+def test_bridge_to_shards_is_bit_for_bit():
+    """JAX parameters -> ``params_from_numpy`` -> ``shard_params`` ->
+    concatenation gives the JAX arrays back, compared as bf16 bit
+    patterns (int16)."""
+    cfg = j_scaled(j_smoke("llama31-8b"), dtype="bfloat16")
+    jp = jax.tree.map(np.asarray, j_init(cfg, jax.random.PRNGKey(0)))
+    parts = shard_params(params_from_numpy(jp, device="cpu"), cfg, _cpu(2))
+    _, specs = serving_param_shardings(cfg, 2)
+    flat = jax.tree_util.tree_flatten_with_path(jp)[0]
+    assert flat
+    for path, arr in flat:
+        keys = [p.key for p in path]
+        got, spec = parts, specs
+        for k in keys:
+            got, spec = [g[k] for g in got], spec[k]
+        dim = spec.index("model") if "model" in spec else None
+        whole = got[0] if dim is None else torch.cat(got, dim=dim)
+        assert whole.dtype == torch.bfloat16
+        np.testing.assert_array_equal(whole.view(torch.int16).numpy(),
+                                      arr.view(np.int16))
+
+
+# ---------------------------------------------------------------------------
+# the sharded engine
+# ---------------------------------------------------------------------------
+
+def _equiv_workload(M):
+    """The workload of the reference's sharded-engine test (``tests/
+    test_sharded_serving.py``, ``_EQUIV``)."""
+    return M.agentic_workload(M.AgenticConfig(
+        n_jobs=4, tool_calls_per_job=(2, 3), system_prefix_len=48,
+        task_len=(70, 150), tool_result_len=(33, 80), output_len=(16, 28),
+        tool_duration=(0.2, 0.8), qps=3.0, seed=7))
+
+
+def _equiv_server(M, cfg, params, n_shards, depth, **kw):
+    """The reference test's server.  ``max_blocks_per_seq`` is 32, not
+    its 24: the reference cuts a block table at NP pages without a word
+    (contexts past 384 tokens attend to the first 384 only), where the
+    port's ``buckets_for`` refuses, so both packages run at 32."""
+    scfg = M.ServerConfig(
+        num_blocks=48, block_size=16, clock="model", pipeline_depth=depth,
+        n_shards=n_shards, host_blocks=16,
+        scheduler=M.SchedulerConfig(token_budget=128, max_chunk=48,
+                                    max_prefills=2, max_decodes=8), **kw)
+    ecfg = M.EngineConfig(num_pages=48, page_size=16, max_prefills=2,
+                          max_chunk=48, max_decodes=8, max_blocks_per_seq=32)
+    return M.AsymCacheServer(cfg, params, scfg, ecfg=ecfg)
+
+
+@pytest.fixture(scope="module")
+def equiv_reference():
+    """The JAX single-device engine's run of the workload, once."""
+    cfg = j_scaled(j_smoke("llama31-8b"), dtype="float32")
+    jp = j_init(cfg, jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    wl = _equiv_workload(J)
+    res = _equiv_server(J, cfg, jp, 1, 0).run(wl)
+    assert res["evictions"] > 0          # the workload stresses the pool
+    return cfg, tp, wl, res
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("depth", [0, 1])
+def test_sharded_engine_matches_jax_single_device(equiv_reference, n,
+                                                  depth):
+    """The port's engine sharded 2 and 4 ways (at 4 the smoke model's 2
+    kv heads do not divide, so wk/wv are replicated) against the JAX
+    package's single-device engine on the same weights: the same steps,
+    sampled ids and generated tokens, first logits within 1e-4, per-shard
+    page counts in range, one step variant a bucket, a drained block
+    manager."""
+    cfg, tp, w1, r1 = equiv_reference
+    srv = _equiv_server(P, cfg, tp, n, depth, shard_devices=["cpu"] * n)
+    wn = _equiv_workload(P)
+    rn = srv.run(wn)
+    assert rn["steps"] == r1["steps"]
+    assert rn["evictions"] == r1["evictions"]
+    assert rn["instep_swaps"] == r1["instep_swaps"] > 0
+    for a, b in zip(w1, wn):
+        assert a.status == b.status == "finished"
+        assert a.sampled_ids == b.sampled_ids and a.sampled_ids
+        assert a.generated == b.generated
+        assert _rel(b.first_logits, a.first_logits) < LOGIT_REL_TOL
+    used = rn["per_shard_used"]
+    assert len(used) == n == rn["n_shards"]
+    assert all(0 <= u <= srv.bm.shard_size for u in used), used
+    assert srv.engine.jit_traces == len(srv.engine.buckets_used)
+    assert srv.scfg.scheduler.max_decode_steps == 1
+    srv.bm.check_invariants()
+    assert all(b.ref_count == 0 for b in srv.bm.blocks)
+    assert not srv.bm.pending_copies
+
+
+def _small_server(M, cfg, params, n_shards, device="cpu", **kw):
+    scfg = M.ServerConfig(
+        policy="asymcache", num_blocks=40, block_size=16, clock="model",
+        host_blocks=16, n_shards=n_shards,
+        scheduler=M.SchedulerConfig(token_budget=128, max_chunk=64,
+                                    max_prefills=2, max_decodes=8), **kw)
+    ecfg = M.EngineConfig(num_pages=40, page_size=16, max_prefills=2,
+                          max_chunk=64, max_decodes=8)
+    return M.AsymCacheServer(cfg, params, scfg, ecfg=ecfg, device=device)
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "gemma3-12b"])
+def test_sharded_engine_other_families_match_single_device(arch):
+    """MoE (Grok-1 smoke: the router replicated, the experts' ffn columns
+    split) and Gemma-3 smoke (tied embeddings as the vocab-split head,
+    five windowed layers of six) sharded 2 ways against the port's own
+    single-device engine, which the other test files hold to the JAX
+    package: the same schedule, tokens and sampled ids, and first logits
+    within the losslessness bar of the dense forward.  Grok's are also
+    within 1e-4 of the single-device run.  Gemma's smoke model is not
+    held to that: it turns a relative error of 1e-7 in its attention
+    outputs into 6e-5 in its first logits (measured on the CPU), so the
+    merge's own rounding reaches ~2e-4 there."""
+    cfg = scaled_config(get_smoke_config(arch), dtype="float32")
+    params = init_params(cfg, seed=0, device="cpu")
+    wk = lambda: P.multi_turn_workload(P.WorkloadConfig(     # noqa: E731
+        n_sessions=3, turns_per_session=(2, 3), first_ctx_len=(96, 180),
+        output_len=(12, 24), qps=1.0, vocab=cfg.vocab_size, seed=3))
+    w1, w2 = wk(), wk()
+    r1 = _small_server(P, cfg, params, 1).run(w1)
+    srv = _small_server(P, cfg, params, 2, shard_devices=["cpu"] * 2)
+    r2 = srv.run(w2)
+    assert r1["evictions"] > 0
+    # (swap_bytes_shipped differs: a sharded step ships one payload row a
+    # shard, as the reference's does)
+    for key in ("steps", "evictions", "swap_ins", "instep_swaps",
+                "eager_swaps", "instep_copies", "eager_copies",
+                "bucket_counts"):
+        assert r2[key] == r1[key], key
+    for a, b in zip(w1, w2):
+        assert a.status == b.status == "finished"
+        assert a.sampled_ids == b.sampled_ids and a.generated == b.generated
+        ref = P.reference_logits(cfg, params, b.prompt_tokens)
+        assert _rel(b.first_logits, ref) < LOSSLESS_REL_TOL
+        if cfg.moe is not None:
+            assert _rel(b.first_logits, a.first_logits) < LOGIT_REL_TOL
+
+
+# ---------------------------------------------------------------------------
+# refusals, as the reference's
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tiny():
+    cfg = scaled_config(get_smoke_config("llama31-8b"), dtype="float32")
+    return cfg, init_params(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("ecfg_kw", [dict(attn_mode="split"),
+                                     dict(swap_payload="q8"),
+                                     dict(snap="int8", snap_scale=0.1),
+                                     dict(num_pages=30)])
+def test_sharded_engine_refuses_what_the_reference_asserts(tiny, ecfg_kw):
+    cfg, params = tiny
+    ecfg = P.EngineConfig(**{"num_pages": 32, **ecfg_kw})
+    with pytest.raises(ValueError):
+        P.Engine(cfg, ecfg, params, shard_devices=["cpu"] * 4)
+
+
+def test_sharded_server_refuses_quantized_offload_and_k_steps(tiny):
+    cfg, params = tiny
+    with pytest.raises(ValueError):
+        _small_server(P, cfg, params, 2, shard_devices=["cpu"] * 2,
+                      offload=OffloadConfig(quant="int8",
+                                              retain_host=True))
+    srv = _small_server(P, cfg, params, 2, shard_devices=["cpu"] * 2)
+    assert srv.scfg.scheduler.max_decode_steps == 1
+    plan = P.StepPlan(prefills=[], decodes=[], decode_steps=2)
+    with pytest.raises(ValueError):
+        srv.engine.build_inputs(plan)
+
+
+def test_serving_devices_refuse_to_pick():
+    """Too few devices raise; an explicit list may repeat a device."""
+    assert make_serving_devices(3, ["cpu"] * 4) == [torch.device("cpu")] * 3
+    with pytest.raises(ValueError):
+        make_serving_devices(3, ["cpu"] * 2)
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError):
+            make_serving_devices(2)
