@@ -1,7 +1,7 @@
 """The weight split of sharded serving: the logical-axis rules of the JAX
 package (``repro.distributed.sharding.sharding_rules``, ``WEIGHT_AXES``,
 ``serving_param_shardings``), the parameters' logical axes
-(``repro.models.model.param_axes`` for the dense and MoE blocks), and
+(``repro.models.model.param_axes``), and
 :func:`shard_params`, which cuts the port's parameters into one dict per
 shard.
 
@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.context import ShardGroup
+from repro_torch.models.model import param_defs
 
 #: logical axes that shard parameters (as opposed to activations and
 #: decode state); decode and prefill rules must agree on all of them for
@@ -74,33 +75,13 @@ def sharding_rules(cfg: ModelConfig, n: int, kind: str,
 
 
 def param_axes(cfg: ModelConfig) -> Dict:
-    """Logical axes of every parameter of the dense and MoE families, in
-    the parameters' nesting (``_block_defs``/``_build`` of the JAX
-    package)."""
-    blocks: Dict[str, Tuple] = {
-        "attn_norm": (None, None),
-        "wq": (None, "fsdp", "heads", None),
-        "wk": (None, "fsdp", "kv_heads", None),
-        "wv": (None, "fsdp", "kv_heads", None),
-        "wo": (None, "heads", None, "fsdp"),
-        "mlp_norm": (None, None),
-    }
-    if cfg.moe is not None:
-        blocks.update({
-            "router": (None, None, None),
-            "we1": (None, "experts", "expert_fsdp", "expert_ffn"),
-            "we3": (None, "experts", "expert_fsdp", "expert_ffn"),
-            "we2": (None, "experts", "expert_ffn", "expert_fsdp"),
-        })
-    else:
-        blocks.update({"w1": (None, "fsdp", "ffn"),
-                       "w3": (None, "fsdp", "ffn"),
-                       "w2": (None, "ffn", "fsdp")})
-    axes: Dict[str, Any] = {"embed": ("vocab", None), "blocks": blocks,
-                            "final_norm": (None,)}
-    if not cfg.tie_embeddings:
-        axes["lm_head"] = (None, "vocab")
-    return axes
+    """Logical axes of every parameter of any family, in the parameters'
+    nesting (``repro.models.model.param_axes``), from the same table
+    ``init_params`` draws from."""
+    def axes(defs):
+        return {k: axes(v) if isinstance(v, dict) else v[2]
+                for k, v in defs.items()}
+    return axes(param_defs(cfg))
 
 
 def _resolve(tree: Dict, rules: Dict) -> Dict:

@@ -1,3 +1,13 @@
-from repro_torch.models.model import forward, init_params
+from repro_torch.models.model import (
+    decode_step,
+    forward,
+    init_decode_state,
+    init_params,
+    loss_fn,
+    prep_cross_attention,
+)
 
-__all__ = ["forward", "init_params"]
+__all__ = [
+    "decode_step", "forward", "init_decode_state", "init_params",
+    "loss_fn", "prep_cross_attention",
+]

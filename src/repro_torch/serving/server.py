@@ -874,5 +874,5 @@ def reference_logits(cfg: ModelConfig, params, tokens: List[int]) -> np.ndarray:
     t = torch.as_tensor(tokens, dtype=torch.long,
                         device=params["embed"].device)[None]
     with torch.no_grad():
-        lg = forward(params, cfg, t)
+        lg = forward(params, cfg, {"tokens": t})
     return lg[0, -1].float().cpu().numpy()

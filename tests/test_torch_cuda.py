@@ -17,8 +17,10 @@ cut into pieces and merged (head dims 16-256, pages 8-64, GQA groups of
 1-8 heads, a window whose first visible key lies in a later piece), each
 at the wrapper's piece size (launched twice for the same bits) and at a
 smaller one.  Last, the MoE engine (Grok-1 smoke) on the card against
-the CPU, and quantized offload on the card against its full-precision-
-payload control arm.
+the CPU, quantized offload on the card against its full-precision-
+payload control arm, and the full model (forward, banded forward and
+teacher-forced decode of the SSM, hybrid, encoder-decoder and
+local/global smoke models) on the card against the CPU.
 
 Marked ``cuda``; each test skips without a card.  Run on the card with
 ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.  Imports no JAX,
@@ -861,3 +863,89 @@ def test_sharded_engine_on_card_matches_single_device(dev):
     assert (f1, p1) == (cfg.n_layers * r1["steps"], 0)
     assert (f2, p2) == (0, 2 * cfg.n_layers * r2["steps"])
     _same_results(w2, w1)
+
+
+# ---------------------------------------------------------------------------
+# the full model (plain PyTorch: no kernel of its own) on the card
+# ---------------------------------------------------------------------------
+
+def _tree_to(tree, dev):
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b",
+                                  "whisper-large-v3", "gemma3-12b"])
+def test_full_model_on_card_matches_cpu(dev, arch):
+    """The SSM, hybrid, encoder-decoder and local/global smoke models
+    (float32, wq/wk at fan-in) on the card and on the CPU, same weights
+    and inputs: the forward's logits and K/V (also banded: the local
+    layers' tiles of 16 divide 48), and 48 teacher-forced decode steps
+    (past the smoke windows of 16 and Mamba's chunks of 16), logits and every state tensor, within 1e-5 of their
+    scale; on the card the steps hold to its forward within 2e-3."""
+    import math
+    from repro_torch.configs import get_smoke_config, scaled_config
+    from repro_torch.models import (decode_step, forward, init_decode_state,
+                                    init_params, prep_cross_attention)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = scaled_config(get_smoke_config(arch), dtype="float32")
+    cpu = init_params(cfg, seed=0, device="cpu")
+    for name in ("wq", "wk", "xwq", "xwk"):
+        if name in cpu["blocks"]:
+            cpu["blocks"][name].mul_(math.sqrt(cfg.n_heads / cfg.d_model))
+    B, S = 2, 48
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen)}
+    if cfg.enc_dec:
+        batch["enc_embeds"] = torch.randn((B, cfg.encoder_len, cfg.d_model),
+                                          generator=gen)
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max()) / max(
+            1e-30, float(b.abs().max()))
+
+    runs = {}
+    for device, params in (("cpu", cpu), (dev, _tree_to(cpu, dev))):
+        b = _tree_to(batch, device)
+        with torch.no_grad():
+            logits, kv = forward(params, cfg, b, return_kv=True)
+            banded = forward(params, cfg, b, banded=True)
+            st = init_decode_state(cfg, B, S, device=device)
+            if cfg.enc_dec:
+                st = prep_cross_attention(params, cfg, b["enc_embeds"], st)
+            steps = []
+            for t in range(S):
+                lg, st = decode_step(params, cfg, st, b["tokens"][:, t])
+                steps.append(lg)
+        runs[str(device)] = (logits, kv, banded, torch.stack(steps, 1), st)
+    (lc, kvc, bc, dc, sc), (lg, kvg, bg, dg, sg) = runs["cpu"], runs[str(dev)]
+    assert lg.device.type == "cuda" and dg.device.type == "cuda"
+    for got, want in [(lg, lc), (bg, bc), (dg, dc)] + (
+            [] if kvc is None else list(zip(kvg, kvc))):
+        assert rel(got, want) < 1e-5
+    for key, want in sc.items():
+        assert sg[key].device.type == "cuda"
+        if key == "pos":
+            assert torch.equal(sg[key].cpu(), want)
+        else:
+            assert rel(sg[key], want) < 1e-5, key
+    assert rel(dg, lg.cpu()) < 2e-3
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b",
+                                  "whisper-large-v3", "gemma3-12b",
+                                  "grok-1-314b"])
+def test_init_params_on_card_puts_every_tensor_there(dev, arch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_decode_state, init_params
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from (leaves(v) if isinstance(v, dict) else [v])
+
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, seed=0, device=dev)
+    state = init_decode_state(cfg, 2, 8, device=dev)
+    assert all(t.device.type == "cuda"
+               for t in list(leaves(params)) + list(state.values()))

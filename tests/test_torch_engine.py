@@ -19,7 +19,7 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_smoke_config, scaled_config
 from repro_torch.kernels.msa import (UNIT_FIELDS, WL_FIELDS, build_units,
                                      pad_worklist)
-from repro_torch.models import forward, init_params
+from repro_torch.models import init_decode_state, init_params
 from repro_torch.serving.engine import (derive_bucket_lattice,
                                         pack_layout_for, unit_bucket)
 
@@ -263,16 +263,21 @@ def test_instep_and_eager_page_ops_leave_identical_pools():
 
 
 def test_later_slices_raise_not_implemented(small):
-    """What a later slice brings raises: the full model's other families
-    (an SSM model's parameters and forward).  Sharded serving is served
+    """What the port does not serve refuses: the paged engine refuses an
+    SSM, as the reference asserts (the full model runs one:
+    ``tests/test_torch_models.py``); a pure sliding-window decode cache
+    longer than its window (no ring buffer) raises.  Sharded serving is
+    served
     (``tests/test_torch_sharded.py``); without its devices it refuses to
     pick any."""
     cfg, _, tp = small
     ssm = scaled_config(get_smoke_config("mamba2-780m"), dtype="float32")
-    with pytest.raises(NotImplementedError):
-        init_params(ssm, device="cpu")
-    with pytest.raises(NotImplementedError):
-        forward(tp, ssm, torch.zeros((1, 4), dtype=torch.long))
+    with pytest.raises(ValueError):
+        P.Engine(ssm, P.EngineConfig(num_pages=8),
+                 init_params(ssm, device="cpu"), device="cpu")
+    with pytest.raises(ValueError):
+        init_decode_state(scaled_config(cfg, sliding_window=16), 1, 32,
+                          device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(ValueError):
             P.AsymCacheServer(cfg, tp, P.ServerConfig(n_shards=2),
