@@ -7,7 +7,9 @@ card.  Usage, from the root of a checkout::
 Phases:
   1. Print the card (``nvidia-smi`` name and power limit) and the torch
      version, and build the three CUDA kernels from ``src/repro_torch``
-     with ``nvcc``, one compiler each, all at once (each timed).
+     with ``nvcc``, one compiler each, all at once (each timed), and
+     beside them their checked build (``-DMSA_CHECK_BOUNDS``: device
+     bounds asserts) for the memory check.
   2. Hold each kernel against its plain PyTorch version on the card, on
      the same inputs, at Llama-3.1-8B attention shapes (H 32, KH 8,
      D 128, page 16), in bf16 and f32:
@@ -35,12 +37,15 @@ Phases:
        4 shards, each shard held to ``msa_fused_partial_ref`` (o and lse)
        with the same bits twice, the shards' partials merged against the
        full fused kernel;
-     - a memory check of the small cases in child processes, under
+     - a memory check in child processes: the small cases under
        ``compute-sanitizer --tool memcheck`` where the tool supports the
        device (it refuses the chip machines' cards, and the script says
-       so), and over a guard-zone allocator built here with ``nvcc``
-       (every tensor its own allocation between 64 KB guards of 0xFF):
-       no guard written, no NaN read, each kernel within tolerance.
+       so); every case, the large ones included, through the kernels'
+       checked build (device asserts hold every page, row, work-list,
+       work-unit and partial index to its tensor's extent) over a
+       guard-zone allocator built here with ``nvcc`` (every tensor its
+       own allocation between 64 KB guards of 0xFF): no assert fired, no
+       guard written, no NaN read, each kernel within tolerance.
      Kernel and plain version are timed with CUDA events (median of 20),
      each call queued behind a device sleep so that the events time the
      device alone, beside the bound; the kernels are timed once more from
@@ -124,8 +129,25 @@ Phases:
      token on the wall clock and on the device alone (profiler), peak
      device memory.  Then the same in float32 (TF32 off; < 2e-3, the JAX
      package's bar), Gemma-3 cut to its first 12 layers.
+  10. (after 9, everything freed) Training (``repro_torch.training``;
+     autograd over the full model, no kernel of its own), bf16, AdamW,
+     remat on, random weights from seed 0 with wq/wk at fan-in, TF32
+     off: (a) Llama-3.1-8B at full width cut to its first 8 layers
+     (2.80B parameters), ``DataConfig(seq_len=2048, global_batch=4,
+     seed=17)``, ``grad_accum`` 2, 8 steps through ``Trainer.run``: every
+     loss and grad norm finite, the last loss below the first, the first
+     step's loss within 1e-2 of a float32 copy of the same weights on the
+     same batch (computed first and freed); tokens/s on the wall over
+     steps 2-8, device ms a step (CUDA events), peak memory, the share of
+     989 TFLOP/s; (b) in a child process under deterministic algorithms
+     (``CUBLAS_WORKSPACE_CONFIG=:4096:8``), one forward and backward of
+     (a)'s model at 1 x 2048 with remat on and off: the same bits in the
+     loss and every gradient leaf, each arm's ms and peak memory;
+     (c) Mamba2-780m at full width and depth, 2 x 2048 tokens, 4 steps:
+     losses finite and falling, tokens/s, peak memory.
 
-Phase 9 prints one ``full_model:`` JSON line a model and dtype (with the
+Phase 9 prints one ``full_model:`` JSON line a model and dtype, phase 10
+one ``train:`` line a run and one ``train_remat:`` line (each with the
 card line).  Prints the card line again, the (o, lse) mode's row and the
 kernel table (all three kernels) as JSON lines, and, last, ``{"ok": true, "device":
 {...}}``.  Any failure
@@ -135,6 +157,7 @@ Needs a CUDA device and the repository's ``src/`` beside this file.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import gc
 import json
@@ -978,17 +1001,34 @@ def _guard_allocator():
 
 
 def _memcheck_child(mode: str) -> None:
-    """Phase 2's small cases, each kernel launched once (the fused kernel,
-    its (o, lse) mode, and the prefill and decode kernels), in bf16 and
-    f32, under ``compute-sanitizer`` (``mode`` "sanitizer") or over the
-    guard-zone allocator (``mode`` "guard"), where each launch is also
-    synchronised and held to its plain version (a read past a tensor
-    reads NaN), and every guard is checked at the end."""
+    """Phase 2's cases, each kernel launched once (the fused kernel, its
+    (o, lse) mode, and the prefill and decode kernels), in bf16 and f32:
+    the small cases under ``compute-sanitizer`` (``mode`` "sanitizer");
+    every case, the large ones included (the mixed step, decode-only,
+    R 4 x QP 128, B 64, G = 6, the (o, lse) half-step, the split main
+    cases at pieces of 8 and 128 pages), over the guard-zone allocator
+    (``mode`` "guard", started with ``MSA_CHECK_BOUNDS=1``, so the kernels
+    are their checked build, whose device asserts hold every index to its
+    tensor's extent).  There each launch is also synchronised and held to
+    its plain version (a read past a tensor reads NaN), and every guard is
+    checked at the end."""
     import torch
+    from repro_torch.kernels.msa import _build
     lib = _guard_allocator() if mode == "guard" else None
-    _, _, fused_small, _ = fused_cases()
-    _, partial_small = partial_cases()
-    _, _, split_small, _ = split_cases()
+    if lib is not None and not _build.checked():
+        raise AssertionError("memcheck guard: the checked build is not on")
+    fused_main, fused_decode, fused_small, fused_grok = fused_cases()
+    partial_main, partial_small = partial_cases()
+    split_prefill, split_decode, split_small, split_grok = split_cases()
+    if lib is not None:
+        fused_small = dict(fused_small, main=fused_main, decode=fused_decode,
+                           grok_g6=fused_grok)
+        partial_small = dict(partial_small, main=partial_main)
+        split_small = {**split_small, **split_grok,
+                       ("prefill", "main"): split_prefill,
+                       ("decode", "main"): split_decode,
+                       ("decode", "fused_decode_only"):
+                           _decode_only_as_split(fused_decode)}
     launches, worst = 0, 0.0
 
     def check(got, want, dtype_name):
@@ -1021,8 +1061,17 @@ def _memcheck_child(mode: str) -> None:
         for (kind, _), case in split_small.items():
             kernel, plain, _ = _split_fns(kind, case, dtype_name)
             check([kernel()], [plain()], dtype_name)
+    if lib is not None:
+        from repro_torch.kernels.msa import msa_decode_cuda, msa_prefill_cuda
+        for kind, case, fn in (("prefill", split_prefill, msa_prefill_cuda),
+                               ("decode", split_decode, msa_decode_cuda)):
+            _, plain, args = _split_fns(kind, case, "bfloat16")
+            for piece_pages in (8, 128):
+                check([fn(*args, piece_pages=piece_pages)], [plain()],
+                      "bfloat16")
     torch.cuda.synchronize()
-    line = {"mode": mode, "launches": launches}
+    line = {"mode": mode, "launches": launches,
+            "checked_build": _build.checked()}
     if lib is not None:
         line.update(bad_guards=int(lib.guard_check_live()),
                     guarded_tensors=int(lib.guard_checked()),
@@ -1046,14 +1095,15 @@ int main() {
 
 
 def memcheck_phase() -> dict:
-    """The memory check of phase 2's small cases, in child processes:
-    under ``compute-sanitizer --tool memcheck`` (beside ``nvcc`` in the
-    CUDA toolkit; a missing tool raises) with PyTorch's caching allocator
-    off, failing on any error it reports, unless it refuses the device
-    ("Device not supported", as it does in the machines this script has
-    run on: then it says so); and over the guard-zone allocator, failing
-    on a written guard, a NaN or a disagreement.  Returns each run's
-    seconds and outcome."""
+    """The memory check of phase 2's cases, in child processes: the small
+    ones under ``compute-sanitizer --tool memcheck`` (beside ``nvcc`` in
+    the CUDA toolkit; a missing tool raises) with PyTorch's caching
+    allocator off, failing on any error it reports, unless it refuses the
+    device ("Device not supported", as it does in the machines this script
+    has run on: then it says so); and every case through the kernels'
+    checked build (``MSA_CHECK_BOUNDS=1``: device bounds asserts) over the
+    guard-zone allocator, failing on an assert, a written guard, a NaN or
+    a disagreement.  Returns each run's seconds and outcome."""
     import os
     from repro_torch.kernels.msa import _build
     tool = Path(_build._nvcc()).parent / "compute-sanitizer"
@@ -1078,7 +1128,7 @@ def memcheck_phase() -> dict:
                            "--memcheck", "sanitizer"],
              dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1")),
             ("guard", [sys.executable, me, "--memcheck", "guard"],
-             dict(os.environ))):
+             dict(os.environ, MSA_CHECK_BOUNDS="1"))):
         if mode == "sanitizer" and refused:
             run = first
         else:
@@ -1089,6 +1139,7 @@ def memcheck_phase() -> dict:
         res = {"returncode": run.returncode,
                "seconds": time.perf_counter() - t0,
                "summary": [ln for ln in report if "ERROR SUMMARY" in ln
+                           or "Assertion" in ln
                            or ln.startswith("memcheck_child")]}
         res["outcome"] = (
             "device not supported by the tool"
@@ -2186,6 +2237,237 @@ def full_model_phase(card, models=FULL_MODELS):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: training (repro_torch.training) at full width
+# ---------------------------------------------------------------------------
+
+# the first bf16 step's loss against the loss of a float32 copy of the
+# same weights on the same batch, relative: bf16 rounds every product and
+# the residual stream (2^-9 a rounding) through 8 layers, and the loss
+# (~12 nats at random weights) is a mean over 8192 tokens
+TRAIN_LOSS_TOL = 1e-2
+# phase 10's runs: (name, arch, layers (None: full depth), seq_len,
+# global_batch, grad_accum, steps)
+TRAIN_RUNS = (("llama31-8b", 8, 2048, 4, 2, 8),
+              ("mamba2-780m", None, 2048, 2, 1, 4))
+
+
+def _train_flops(cfg, batch, seq):
+    """Operations of one train step of a dense attention model: 6 x the
+    parameters that enter a product (every layer's projections and MLP and
+    the head; the embedding is a gather) x tokens (forward 2, backward 4),
+    plus the attention's score and value products over the full S x S
+    rectangle, as the port's chunked attention computes it (in float32),
+    4 S^2 H hd a sequence and layer forward, 3x with the backward.  The
+    remat's second forward is not counted."""
+    d = cfg.d_model
+    per_layer = (2 * d * cfg.q_dim + 2 * d * cfg.kv_dim
+                 + 3 * d * cfg.d_ff)
+    in_products = cfg.n_layers * per_layer + d * cfg.vocab_size
+    attn = (3 * 4 * seq * seq * cfg.n_heads * cfg.head_dim * batch
+            * cfg.n_layers)
+    return {"in_products_params": in_products,
+            "flops_dense": 6.0 * in_products * batch * seq,
+            "flops_attention": float(attn)}
+
+
+def train_run(card, arch, n_layers, seq, batch, grad_accum, steps):
+    """``steps`` train steps through ``Trainer.run`` at full width (bf16,
+    AdamW by ``for_arch``, lr 3e-4, remat on, weights from seed 0 with
+    wq/wk at fan-in, ``DataConfig(seq_len=seq, global_batch=batch,
+    seed=17)``), each step's device time from CUDA events around the train
+    step; first (dense models) the loss of a float32 copy of the same
+    weights on step 0's batch, computed and freed before the optimizer
+    state exists.  Checks: every loss and grad norm finite, the last loss
+    below the first, the first loss within ``TRAIN_LOSS_TOL`` of the
+    float32 copy's.  One ``train:`` JSON line."""
+    import torch
+    from repro_torch.models import loss_fn
+    from repro_torch.training import DataConfig, TrainConfig, Trainer
+    from repro_torch.training.optimizer import leaves, map_leaves
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params = _full_model(arch, "bfloat16", n_layers)
+    dcfg = DataConfig(seq_len=seq, global_batch=batch, seed=17)
+    tr = Trainer(cfg, TrainConfig(steps=steps, grad_accum=grad_accum,
+                                  lr=3e-4, seed=0), dcfg)
+    n_params = sum(v.numel() for _, v in leaves(params))
+    line = {"card": card, "model": cfg.name, "dtype": "bfloat16",
+            "layers": cfg.n_layers, "full_depth": n_layers is None,
+            "params": n_params, "optimizer": tr.opt.name,
+            "seq_len": seq, "global_batch": batch, "grad_accum": grad_accum,
+            "steps": steps, "remat": True,
+            "tokens_per_step": batch * seq}
+    dense = cfg.family == "dense"
+    if dense:
+        f32 = map_leaves(lambda t: t.float(), params)
+        with torch.no_grad():
+            line["loss_f32_step0"] = float(loss_fn(
+                f32, dataclasses.replace(cfg, dtype="float32"),
+                tr.data.batch_at(0)))
+        del f32
+        gc.collect()
+        torch.cuda.empty_cache()
+    tr.params = params
+    tr.opt_state = tr.opt.init(params)
+    del params
+    line["init_s"] = time.perf_counter() - t0
+    inner, events = tr.step_fn, []
+
+    def timed_step(*args):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        out = inner(*args)
+        end.record()
+        events.append((start, end))
+        return out
+
+    tr.step_fn = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hist = [h for h in tr.run() if "loss" in h]
+    torch.cuda.synchronize()
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    device_ms = [s.elapsed_time(e) for s, e in events]
+    wall = [h["step_time"] for h in hist]
+    line.update(
+        losses=losses, grad_norms=norms, step_wall_s=wall,
+        step_device_ms=device_ms,
+        tokens_per_s_wall_after_first=(batch * seq * (steps - 1)
+                                       / sum(wall[1:])),
+        device_ms_per_step_after_first=statistics.mean(device_ms[1:]),
+        first_step_wall_s=wall[0],
+        peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
+        stragglers=len(tr.history) - len(hist))
+    if dense:
+        line.update(_train_flops(cfg, batch, seq))
+        flops = line["flops_dense"] + line["flops_attention"]
+        line["share_of_bf16_peak"] = (
+            flops / (line["device_ms_per_step_after_first"] / 1e3)
+            / PEAK_FLOPS["bfloat16"])
+        line["first_loss_vs_f32_rel"] = (abs(losses[0]
+                                             - line["loss_f32_step0"])
+                                         / abs(line["loss_f32_step0"]))
+    print("train: " + json.dumps(line), flush=True)
+    assert all(math.isfinite(x) for x in losses + norms), line
+    assert losses[-1] < losses[0], line
+    if dense:
+        assert line["first_loss_vs_f32_rel"] <= TRAIN_LOSS_TOL, line
+    _profile_train_step(card, cfg.name, tr)
+    del tr, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def _profile_train_step(card, model, tr):
+    """One more train step (the step after the run's last) under
+    torch.profiler (CUDA activity): the device's busy share of the step's
+    wall time, and the kernels that take the most device time, each
+    with its share of the busy time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    batch = tr.data.batch_at(tr.step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tr.step_fn(tr.params, tr.opt_state, batch, tr.step)
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if not kernels:
+        print(f"train_profile ({model}): the profiler recorded no device "
+              "time (not measured)", flush=True)
+        return
+    print("train_profile: " + json.dumps({
+        "card": card, "model": model, "wall_ms": wall_us / 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / wall_us,
+        "kernel_names": len(kernels),
+        "launches": sum(e.count for e in kernels)}), flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print("train_profile_kernel " + json.dumps({
+            "model": model, "name": e.key[:90], "calls": e.count,
+            "device_ms": e.self_device_time_total / 1e3,
+            "share_of_busy": e.self_device_time_total / busy_us}),
+            flush=True)
+
+
+def _remat_child() -> None:
+    """Phase 10 (b), in its own process (started with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, deterministic algorithms on):
+    one forward and backward of Llama-3.1-8B's first 8 layers at B 1 x S
+    2048 (bf16, seed 0, wq/wk at fan-in) with remat on, then off, then
+    each once more: the loss and every gradient leaf of the first two
+    must have the same bits; each arm's ms from its second run (host
+    clock around a synchronised step; the first run of an arm also grows
+    the caching allocator) and its peak device memory."""
+    import torch
+    from repro_torch.training import DataConfig, SyntheticLM
+    from repro_torch.training.train_step import value_and_grad
+    torch.use_deterministic_algorithms(True)
+    cfg, params = _full_model("llama31-8b", "bfloat16", n_layers=8)
+    batch = SyntheticLM(cfg, DataConfig(seq_len=2048, global_batch=1,
+                                        seed=17)).batch_at(0)
+    line = {"model": cfg.name, "layers": cfg.n_layers, "batch": 1,
+            "seq_len": 2048, "deterministic": True}
+    arms = {}
+    for remat in (True, False, True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(params, cfg, batch, remat=remat)
+        torch.cuda.synchronize()
+        key = "remat_on" if remat else "remat_off"
+        line[f"{key}_ms"] = (time.perf_counter() - t0) * 1e3
+        line[f"{key}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        line[f"{key}_activation_peak_gib"] = (
+            torch.cuda.max_memory_allocated() - base) / 2**30
+        if key not in arms:          # the second run of an arm is timed
+            arms[key] = (loss, grads)
+        del loss, grads
+    (l_on, g_on), (l_off, g_off) = arms["remat_on"], arms["remat_off"]
+    line["loss"] = float(l_on)
+    line["loss_same_bits"] = bool(torch.equal(l_on, l_off))
+    line["grad_leaves"] = len(g_on)
+    line["grad_leaves_same_bits"] = sum(
+        bool(torch.equal(g_on[k], g_off[k])) for k in g_on)
+    line["grads_finite"] = all(bool(torch.isfinite(g).all())
+                               for g in g_on.values())
+    print("train_remat_child: " + json.dumps(line), flush=True)
+
+
+def train_phase(card):
+    """Phase 10: (a) Llama-3.1-8B at full width cut to 8 layers, 8 steps;
+    (b) remat on against off in a child process under deterministic
+    algorithms; (c) Mamba2-780m at full width and depth, 4 steps."""
+    import os
+    lines = [train_run(card, *TRAIN_RUNS[0])]
+    run = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--train-remat"],
+        env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"),
+        capture_output=True, text=True, timeout=600)
+    child = [ln for ln in run.stdout.splitlines()
+             if ln.startswith("train_remat_child: ")]
+    if run.returncode != 0 or not child:
+        print((run.stdout + run.stderr)[-6000:], flush=True)
+        raise AssertionError(f"phase 10 (b) failed (exit {run.returncode})")
+    remat = json.loads(child[-1].split(": ", 1)[1])
+    remat["card"] = card
+    print("train_remat: " + json.dumps(remat), flush=True)
+    if not (remat["loss_same_bits"] and remat["grads_finite"]
+            and remat["grad_leaves_same_bits"] == remat["grad_leaves"]):
+        raise AssertionError(f"remat on and off differ: {remat}")
+    lines.append(train_run(card, *TRAIN_RUNS[1]))
+    return lines, remat
+
+
+# ---------------------------------------------------------------------------
 # phase 4: where a serving run's device time goes
 # ---------------------------------------------------------------------------
 
@@ -2274,6 +2556,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--memcheck"]:     # memcheck_phase's children
         _memcheck_child(sys.argv[2])
         return 0
+    if sys.argv[1:2] == ["--train-remat"]:  # phase 10 (b)'s child
+        _remat_child()
+        return 0
 
     start = time.perf_counter()
 
@@ -2287,6 +2572,10 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     from repro_torch.kernels.msa import _build
     names = ("msa_fused", "msa_prefill", "msa_decode")
+    # the memory check's checked build compiles beside the release build
+    # and phase 2's kernel checks
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    checked = pool.submit(_build.build, names, True)
     for name, secs in _build.build(names).items():
         print(f"build: {name}.cu in {secs:.1f} s (built together)",
               flush=True)
@@ -2303,6 +2592,10 @@ def main() -> int:
                                                    fused_decode)
     partial_main = partial_kernel_phase()[("main", "bfloat16")]
     done("2 kernels")
+    for name, secs in checked.result().items():
+        print(f"build: {name}.cu, checked build, in {secs:.1f} s",
+              flush=True)
+    pool.shutdown()
     memcheck_phase()
     done("2 memcheck")
     torch.cuda.empty_cache()
@@ -2341,6 +2634,14 @@ def main() -> int:
     assert left < 2.0, left
     full_model_phase(card)
     done("9")
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2**30
+    print(f"train: {left:.2f} GiB of device memory held before phase 10",
+          flush=True)
+    assert left < 2.0, left
+    train_phase(card)
+    done("10")
 
     fused_main = fused_results[("main", "bfloat16")]
     src = "src/repro_torch/kernels/msa/csrc/"

@@ -11,9 +11,10 @@ on the cases of ``chip_smoke.py``'s phase 2, which this checkout's
 ``chip_smoke.py`` builds from its seeds, so every tree sees the same
 inputs.  It prints one ``ab`` JSON line a timed case (median of 20
 CUDA-event timings on the device alone, ``ms``, and from an idle device,
-``ms_with_enqueue``; the card's name and power limit first) and saves the
-fused kernel's output on every fused case to ``OUT.pt``.  ``compare``
-says whether two runs' fused kernels gave the same bits on every case.
+``ms_with_enqueue``; the card's name and power limit first) and saves each
+kernel's output on every case (the fused kernel's, the prefill and the
+decode kernel's) to ``OUT.pt``.  ``compare`` says whether two runs'
+kernels gave the same bits on every case.
 An output file holds tens of MB.  Needs a CUDA device; imports no JAX.
 """
 from __future__ import annotations
@@ -58,6 +59,7 @@ def run(tree: Path, out: Path) -> int:
                 _timed("msa_fused", name, dtype_name, kernel)
         for (kind, name), case in split.items():
             kernel, _, _ = cs._split_fns(kind, case, dtype_name)
+            saved[f"{kind}/{name}/{dtype_name}"] = kernel().cpu()
             _timed(f"msa_{kind}", name, dtype_name, kernel)
     torch.save(saved, out)
     return 0
@@ -76,7 +78,7 @@ def compare(a: Path, b: Path) -> int:
     import torch
     xa, xb = torch.load(a), torch.load(b)
     same = {k: bool(torch.equal(xa[k], xb[k])) for k in sorted(xa)}
-    print("ab_fused_same_bits " + json.dumps(
+    print("ab_same_bits " + json.dumps(
         {"a": str(a), "b": str(b), "all": all(same.values()), **same}),
         flush=True)
     return 0 if all(same.values()) and set(xa) == set(xb) else 1

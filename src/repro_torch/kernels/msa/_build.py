@@ -10,6 +10,14 @@ Each kernel is one source, ``csrc/<name>.cu``, compiled with ``nvcc`` for
 anew and an unchanged one is loaded as it is.  :func:`build` compiles
 several kernels at once, one ``nvcc`` each.  Nothing here runs when a
 module is imported: a kernel is built on its first launch.
+
+A process started with ``MSA_CHECK_BOUNDS=1`` in its environment loads
+the checked build of each kernel instead (``-DMSA_CHECK_BOUNDS``, its own
+library name and hash, so it never replaces the release build): device
+asserts hold every page, row, work-list, work-unit and partial index the
+kernel reads or writes through to the extents its wrapper sets with
+:func:`set_extents` before each launch.  An assert that fires ends the
+process with a CUDA error.
 """
 from __future__ import annotations
 
@@ -21,7 +29,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Sequence, Set, Tuple
 
 import torch
 
@@ -29,6 +37,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+CHECK_ENV = "MSA_CHECK_BOUNDS"
+CHECK_FLAGS = ("-DMSA_CHECK_BOUNDS",)
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -40,16 +50,29 @@ PIECE_PAGES = 32
 MAX_PIECES = 8
 M_ROWS = 64
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Tuple[str, bool], ctypes.CDLL] = {}
+_checked_libs: Set[int] = set()
 
 
-def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
+def checked() -> bool:
+    """Whether this process loads the checked build (``MSA_CHECK_BOUNDS=1``
+    in its environment)."""
+    return os.environ.get(CHECK_ENV) == "1"
+
+
+def _flags(check: bool) -> Tuple[str, ...]:
+    return NVCC_FLAGS + CHECK_FLAGS if check else NVCC_FLAGS
+
+
+def library_path(name: str, check: bool = False) -> Path:
+    """Where the library of ``csrc/<name>.cu`` (its checked build with
+    ``check``) is, or will be, built."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(_flags(check)).encode())
+    variant = "-checked" if check else ""
+    return BUILD_DIR / f"lib{name}{variant}-{h.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:
@@ -62,23 +85,25 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (the kernels need the CUDA toolkit)")
 
 
-def build(names: Iterable[str]) -> Dict[str, float]:
-    """Compile every named kernel whose library is missing, one ``nvcc``
-    each, all started together; returns each build's seconds (0.0 for a
-    library already built).  Each library is renamed into place whole, so
-    a concurrent process never loads a half-written file; the compiler's
-    report (registers, spills per kernel) goes beside it, ``.log``."""
+def build(names: Iterable[str], check: bool = False) -> Dict[str, float]:
+    """Compile every named kernel whose library (the checked build with
+    ``check``) is missing, one ``nvcc`` each, all started together;
+    returns each build's seconds (0.0 for a library already built).  Each
+    library is renamed into place whole, so a concurrent process never
+    loads a half-written file; the compiler's report (registers, spills
+    per kernel) goes beside it, ``.log``."""
     secs: Dict[str, float] = {}
     procs = []
     for name in names:
-        so = library_path(name)
+        so = library_path(name, check)
         if so.exists():
             secs[name] = 0.0
             continue
         so.parent.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(check), "-o", tmp,
+               str(CSRC / f"{name}.cu")]
         with open(tmp + ".log", "w") as log:
             proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
         procs.append((name, so, tmp, cmd, proc, time.perf_counter()))
@@ -107,16 +132,32 @@ def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
     """The library of ``csrc/<name>.cu``, built first if missing, with
     ``signatures`` ({function: (restype, argtypes)}) bound.  Pointers and
     the stream must be ``ctypes.c_void_p`` in the argtypes, or ctypes
-    passes them as 32-bit ints."""
-    lib = _libs.get(name)
+    passes them as 32-bit ints.  The checked build where :func:`checked`."""
+    check = checked()
+    lib = _libs.get((name, check))
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
+        build([name], check)
+        lib = ctypes.CDLL(str(library_path(name, check)))
+        if check:
+            signatures = dict(signatures, msa_set_extents=(
+                ctypes.c_int, [ctypes.c_longlong] * 7 + [ctypes.c_void_p]))
+            _checked_libs.add(id(lib))
         for fn, (restype, argtypes) in signatures.items():
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = argtypes
-        _libs[name] = lib
+        _libs[(name, check)] = lib
     return lib
+
+
+def set_extents(lib: ctypes.CDLL, name: str, stream: int, *, pages: int,
+                rows: int, seqs: int, items: int, units: int = 0,
+                run_units: int = 0, merges: int = 0) -> None:
+    """Give a checked build the extents of the next launch's operands
+    (see ``csrc/msa_common.cuh``); nothing for a release build."""
+    if id(lib) not in _checked_libs:
+        return
+    raise_on_error(lib, name, lib.msa_set_extents(
+        pages, rows, seqs, items, units, run_units, merges, stream))
 
 
 def raise_on_error(lib: ctypes.CDLL, name: str, err: int) -> None:

@@ -63,6 +63,7 @@ msa_decode_kernel(
   const int b = blockIdx.x / max_pieces / n_kv_heads;
   const int G = n_heads / n_kv_heads;
   const int head0 = kvh * G;
+  MSA_CHECK(b < g_ext.seqs && b < g_ext.rows);
   const int ctx = ctx_lens[b];
   const int last = min(ctx - 1, NP * page - 1);
   const int first = window > 0 ? max(ctx - window, 0) : 0;
@@ -99,6 +100,7 @@ __global__ void __launch_bounds__(256) msa_decode_merge_kernel(
   const int b = blockIdx.x / chunks;
   const int i = (blockIdx.x % chunks) * 256 + threadIdx.x;
   if (i >= pairs) return;
+  MSA_CHECK(b < g_ext.rows);
   const int n = row_pieces[b];
   if (n <= 1) return;
   merge_pair<T>(out, part_o, part_ml, (size_t)B * n_heads,

@@ -107,6 +107,7 @@ __global__ void __launch_bounds__(kThreadsF) msa_fused_kernel(
   const size_t key_stride = (size_t)n_kv_heads * D;
   const int per_unit = n_kv_heads * slices;
   const int n_work = u.counts[0] * per_unit;
+  MSA_CHECK(u.counts[0] >= 0 && u.counts[0] <= g_ext.units);
   // stages of 32 key slots: ipp whole pages each, or a 32-key piece of a
   // page longer than 32 keys (cpp pieces a page)
   const int ipp = max(1, kKeys / page);
@@ -121,6 +122,8 @@ __global__ void __launch_bounds__(kThreadsF) msa_fused_kernel(
     if (m0 >= M) continue;
     const int row0 = u.row0[unit];
     const int items = u.items[unit];
+    MSA_CHECK(rows >= 0 && row0 >= 0 && row0 + rows <= g_ext.rows);
+    MSA_CHECK(items >= 0);
     const int head0 = kvh * G;
     if (items == 0) {  // rows no item covers: exact zeros (lse NEG_INF)
       for (int i = tid; i < min(M - m0, kMRows) * D; i += kThreadsF) {
@@ -133,6 +136,9 @@ __global__ void __launch_bounds__(kThreadsF) msa_fused_kernel(
       continue;
     }
     const int item0 = u.item0[unit];
+    MSA_CHECK(item0 >= 0 && item0 + items <= g_ext.items);
+    MSA_CHECK(u.seq[unit] >= 0 && u.seq[unit] < g_ext.seqs);
+    MSA_CHECK(u.part[unit] >= -1 && u.part[unit] < g_ext.run_units);
     const int ctx = ctx_lens[u.seq[unit]];
     const int n_stages = page <= kKeys ? (items + ipp - 1) / ipp : items * cpp;
 
@@ -167,6 +173,8 @@ __global__ void __launch_bounds__(kThreadsF) msa_fused_kernel(
         c.ok = st < n_stages && off < page;
       }
       if (c.ok) {
+        MSA_CHECK(wl_slot[item0 + it] >= 0 &&
+                  wl_slot[item0 + it] < g_ext.pages);
         c.src = ((size_t)wl_slot[item0 + it] * page + off) * key_stride +
                 (size_t)kvh * D;
         c.kv = wl_kvbase[item0 + it] + off;
@@ -345,12 +353,15 @@ __global__ void __launch_bounds__(256) msa_fused_merge_kernel(
   const int pairs = n_heads * (D / 2);  // output pairs of a row
   const int chunks = (pairs + 255) / 256;
   const int n_tasks = u.counts[1] * q_tile * chunks;
+  MSA_CHECK(u.counts[1] >= 0 && u.counts[1] <= g_ext.merges);
   for (int task = blockIdx.x; task < n_tasks; task += gridDim.x) {
     const int run = task / (q_tile * chunks);
     const int r = (task / chunks) % q_tile;
     const int i = (task % chunks) * 256 + threadIdx.x;
     if (r >= u.mg_rows[run] || i >= pairs) continue;
     const int n = u.mg_units[run];
+    MSA_CHECK(n >= 0 && n <= g_ext.run_units);
+    MSA_CHECK(u.mg_row0[run] >= 0 && u.mg_row0[run] + r < g_ext.rows);
     const size_t at = (size_t)(u.mg_row0[run] + r) * n_heads + i / (D / 2);
     const int d = 2 * (i % (D / 2));
     float m = kNegInf;

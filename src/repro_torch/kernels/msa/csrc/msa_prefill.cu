@@ -82,6 +82,7 @@ msa_prefill_kernel(
   const int rows = min(q_tile, QP - row0);
   const int n_valid = max(0, min(q_lens[r] - row0, rows));
   const int ctx = ctx_lens[r];
+  MSA_CHECK(r < g_ext.seqs && (long long)r * QP + row0 + rows <= g_ext.rows);
   const int* qp_row = q_pos + (size_t)r * QP + row0;
 
   if (threadIdx.x < 32) {
@@ -146,6 +147,7 @@ __global__ void __launch_bounds__(256) msa_prefill_merge_kernel(
   const int r = row / QP, ri = row % QP;
   if (i >= pairs || ri >= q_lens[r]) return;
   const int tiles = (QP + q_tile - 1) / q_tile;
+  MSA_CHECK(row < g_ext.rows);
   const int n = tile_pieces[(size_t)r * tiles + ri / q_tile];
   if (n <= 1) return;
   merge_pair<T>(out, part_o, part_ml, (size_t)R * QP * n_heads,

@@ -106,6 +106,8 @@ __device__ __forceinline__ void paged_item(
       c.ok = st < n_stages && off < page;
     }
     if (c.ok) {
+      MSA_CHECK(j >= 0 && j < g_ext.items);
+      MSA_CHECK(bt[j] >= 0 && bt[j] < g_ext.pages);
       c.src = ((size_t)bt[j] * page + off) * key_stride + (size_t)kvh * D;
       c.kv = j * page + off;
     }
@@ -279,6 +281,7 @@ __device__ __forceinline__ void merge_pair(T* __restrict__ out,
                                            const float* __restrict__ part_ml,
                                            size_t plane, size_t at, int d,
                                            int D, int n) {
+  MSA_CHECK(n >= 0 && n <= g_ext.run_units);
   float m = kNegInf;
   for (int k = 0; k < n; ++k) m = fmaxf(m, part_ml[(k * plane + at) * 2]);
   float l = 0.f, x = 0.f, y = 0.f;

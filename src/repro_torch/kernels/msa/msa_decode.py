@@ -70,10 +70,12 @@ def msa_decode_cuda(
     row_pieces = torch.empty((b,), dtype=torch.int32, device=dev)
     ptrs = [x.data_ptr() for x in (q, k_pages, v_pages, out, part_o, part_ml,
                                    row_pieces, block_tables, context_lens)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.set_extents(lib, "msa_decode", stream, pages=k_pages.shape[0],
+                       rows=b, seqs=b, items=np_, run_units=pieces)
     err = lib.msa_decode_launch(
         *ptrs, b, h, kh, d, page, np_, piece_pages, pieces, int(window),
-        float(softcap), _build.DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+        float(softcap), _build.DTYPE_CODE[q.dtype], stream)
     _build.raise_on_error(lib, "msa_decode", err)
     msa_decode_cuda.launches += 1
     return out

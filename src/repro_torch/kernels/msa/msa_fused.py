@@ -320,10 +320,13 @@ def _launch(name: str, q, k_pages, v_pages, q_pos, context_lens,
     ptrs += [x.data_ptr() for x in (
         context_lens, q_pos, wl["wl_slot"], wl["wl_kvbase"],
         *(un[f] for f in UNIT_FIELDS))]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.set_extents(lib, "msa_fused", stream, pages=k_pages.shape[0],
+                       rows=t, seqs=context_lens.shape[0], items=w,
+                       units=n_units, run_units=RUN_UNITS, merges=n_merges)
     err = lib.msa_fused_launch(
         *ptrs, t, h, kh, d, page, min(q_tile, t), int(window),
-        float(softcap), _build.DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+        float(softcap), _build.DTYPE_CODE[q.dtype], stream)
     _build.raise_on_error(lib, "msa_fused", err)
     return out if lse is None else (out, lse)
 

@@ -81,10 +81,12 @@ def msa_prefill_cuda(
     ptrs = [x.data_ptr() for x in (q, k_pages, v_pages, out, part_o, part_ml,
                                    tile_pieces, block_tables, context_lens,
                                    q_pos, q_lens)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.set_extents(lib, "msa_prefill", stream, pages=k_pages.shape[0],
+                       rows=r * qp, seqs=r, items=np_, run_units=pieces)
     err = lib.msa_prefill_launch(
         *ptrs, r, qp, h, kh, d, page, np_, q_tile, piece_pages, pieces,
-        int(window), float(softcap), _build.DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(window), float(softcap), _build.DTYPE_CODE[q.dtype], stream)
     _build.raise_on_error(lib, "msa_prefill", err)
     msa_prefill_cuda.launches += 1
     return out

@@ -6,8 +6,10 @@ Entry points:
   * ``init_params(cfg, seed, device)``
   * ``forward(params, cfg, batch)``: full-sequence causal forward (train
     and prefill), optionally with each layer's K/V and last-position
-    logits only;
-  * ``loss_fn(params, cfg, batch)``: mean next-token cross-entropy;
+    logits only, and with each layer recomputed in the backward
+    (``remat``);
+  * ``loss_fn(params, cfg, batch)``: mean next-token cross-entropy, its
+    layers recomputed in the backward by default (training);
   * ``init_decode_state(cfg, batch_size, max_len)``,
     ``prep_cross_attention`` and ``decode_step``: the dense (contiguous
     per-sequence) decode cache and its one-token step.
@@ -21,7 +23,8 @@ same under an ``x`` prefix, either ``w1``/``w3`` (L, d, f), ``w2``
 (L, E, d, f), ``we2`` (L, E, f, d), and the SSM's ``in_proj``, ``conv_w``,
 ``conv_b``, ``A_log``, ``D``, ``dt_bias``, ``gnorm``, ``ssm_out``; norms
 zero-initialised (they scale by ``1 + w``).  The layers run in a Python
-loop over ``L`` (the JAX package scans them).
+loop over ``L`` (the JAX package scans them), each taking its weights as
+views from one ``torch.unbind`` of each stacked leaf.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
@@ -169,8 +173,26 @@ def _layer_windows(cfg: ModelConfig, n_layers: int) -> List[int]:
             for i in range(n_layers)]
 
 
-def _layer(blocks: Dict, l: int) -> Dict:
-    return {k: v[l] for k, v in blocks.items()}
+def _layers(blocks: Dict) -> List[Dict]:
+    """Each layer's weights, as views of the stacked ``(L, ...)`` leaves
+    from one ``torch.unbind`` a leaf: its backward stacks the layers'
+    gradients once, where indexing ``v[l]`` a layer would write a zero
+    leaf of full size for every layer."""
+    per_leaf = {k: torch.unbind(v) for k, v in blocks.items()}
+    n = len(next(iter(per_leaf.values())))
+    return [{k: v[l] for k, v in per_leaf.items()} for l in range(n)]
+
+
+def _maybe_remat(remat: bool, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``; with ``remat`` and autograd recording,
+    under non-reentrant ``torch.utils.checkpoint``: the backward recomputes
+    the layer from its inputs instead of keeping its activations (the JAX
+    package's ``jax.checkpoint(..., nothing_saveable)``), with the same
+    operations, so the same bits."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kwargs)
+    return fn(*args, **kwargs)
 
 
 def _head(params: Dict, cfg: ModelConfig) -> torch.Tensor:
@@ -327,30 +349,41 @@ def embed_inputs(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
     return x
 
 
+def _encoder_layer(x, blk, cfg: ModelConfig, pos, attn_chunk: int):
+    """One encoder layer: bidirectional attention, then the MLP."""
+    h = x + _attn_sublayer(x, blk, cfg, pos, pos, 0, causal=False,
+                           attn_chunk=attn_chunk)[0]
+    return h + _ffn_sublayer(h, blk, cfg)
+
+
 def _encoder_forward(params, cfg: ModelConfig, enc_embeds: torch.Tensor,
-                     attn_chunk: int = 1024) -> torch.Tensor:
+                     attn_chunk: int = 1024,
+                     remat: bool = False) -> torch.Tensor:
     """The encoder over (B, S_enc, d) embeddings: sinusoidal positions,
     bidirectional attention and the MLP a layer, the final norm."""
     x = enc_embeds.to(torch_dtype(cfg.dtype))
     pos = torch.arange(x.shape[1], device=x.device)[None, :].expand(
         x.shape[:2])
     x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
-    for l in range(cfg.n_encoder_layers):
-        blk = _layer(params["enc_blocks"], l)
-        h = x + _attn_sublayer(x, blk, cfg, pos, pos, 0, causal=False,
-                               attn_chunk=attn_chunk)[0]
-        x = h + _ffn_sublayer(h, blk, cfg)
+    for blk in _layers(params["enc_blocks"]):
+        x = _maybe_remat(remat, _encoder_layer, x, blk, cfg, pos, attn_chunk)
     return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
 def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
-            return_kv: bool = False, last_only: bool = False,
-            banded: bool = False, attn_chunk: int = 1024):
+            remat: bool = False, return_kv: bool = False,
+            last_only: bool = False, banded: bool = False,
+            attn_chunk: int = 1024):
     """Full causal forward over ``batch`` ("tokens" (B, S) or "embeds"
     (B, S, d); "enc_embeds" (B, S_enc, d) for an encoder-decoder):
     logits (B, S, V).
 
-    ``return_kv`` also returns each attention layer's K/V (after rope) as
+    ``remat`` recomputes each decoder (and encoder) layer in the backward
+    instead of keeping its activations (non-reentrant
+    ``torch.utils.checkpoint``, only while autograd records): the same
+    loss and gradients, bit for bit, at the memory of one layer's
+    activations.  ``return_kv`` also returns each attention layer's K/V
+    (after rope) as
     ``(k, v)`` stacks of (L, B, S, KH, hd), ``None`` for an SSM: the
     product of a prefill.  ``last_only`` computes the last position's
     logits only (B, 1, V).  ``banded`` and ``attn_chunk`` are the JAX
@@ -362,13 +395,14 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     enc_out = None
     if cfg.enc_dec:
         enc_out = _encoder_forward(params, cfg, batch["enc_embeds"],
-                                   attn_chunk)
+                                   attn_chunk, remat)
         x = x + sinusoidal_positions(q_pos, cfg.d_model).to(x.dtype)
     banded = _banded_layers(cfg, banded)
     kvs = []
-    for l, window in enumerate(_layer_windows(cfg, cfg.n_layers)):
-        x, kv = _apply_block(x, _layer(params["blocks"], l), cfg, q_pos,
-                             window, enc_out=enc_out, banded=banded,
+    for blk, window in zip(_layers(params["blocks"]),
+                           _layer_windows(cfg, cfg.n_layers)):
+        x, kv = _maybe_remat(remat, _apply_block, x, blk, cfg, q_pos, window,
+                             enc_out=enc_out, banded=banded,
                              attn_chunk=attn_chunk)
         if return_kv and kv is not None:
             kvs.append(kv)
@@ -384,11 +418,13 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
                     torch.stack([v for _, v in kvs]))
 
 
-def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
+def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict, *,
+            remat: bool = True) -> torch.Tensor:
     """Mean next-token cross-entropy of ``forward`` against
     ``batch["labels"]`` (B, S); labels < 0 do not count, and logits at
-    and past ``cfg.real_vocab`` (padding) are masked to -1e9."""
-    logits = forward(params, cfg, batch)
+    and past ``cfg.real_vocab`` (padding) are masked to -1e9.  ``remat``
+    as in :func:`forward` (on by default, as the JAX package's)."""
+    logits = forward(params, cfg, batch, remat=remat)
     labels = batch["labels"]
     if cfg.real_vocab and cfg.real_vocab < cfg.vocab_size:
         pad_mask = torch.arange(cfg.vocab_size,
@@ -521,8 +557,8 @@ def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
     x = params["embed"][tokens]
     if cfg.rope_theta <= 0:
         x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
-    for l, window in enumerate(_layer_windows(cfg, cfg.n_layers)):
-        blk = _layer(params["blocks"], l)
+    for l, (blk, window) in enumerate(zip(
+            _layers(params["blocks"]), _layer_windows(cfg, cfg.n_layers))):
         if cfg.family != "ssm":
             a = _decode_attn_sublayer(x, blk, cfg, state["k"][l],
                                       state["v"][l], pos, window)

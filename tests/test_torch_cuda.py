@@ -20,7 +20,10 @@ smaller one.  Last, the MoE engine (Grok-1 smoke) on the card against
 the CPU, quantized offload on the card against its full-precision-
 payload control arm, and the full model (forward, banded forward and
 teacher-forced decode of the SSM, hybrid, encoder-decoder and
-local/global smoke models) on the card against the CPU.
+local/global smoke models) on the card against the CPU, a train step of
+the Llama, Grok-1 (Adafactor) and Mamba-2 smoke models on the card
+against the CPU, and a checkpoint resume on the card that continues with
+the same bits.
 
 Marked ``cuda``; each test skips without a card.  Run on the card with
 ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.  Imports no JAX,
@@ -949,3 +952,104 @@ def test_init_params_on_card_puts_every_tensor_there(dev, arch):
     state = init_decode_state(cfg, 2, 8, device=dev)
     assert all(t.device.type == "cuda"
                for t in list(leaves(params)) + list(state.values()))
+
+
+# ---------------------------------------------------------------------------
+# Training (repro_torch.training) on the card against the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch,opt_name", [("llama31-8b", "adamw"),
+                                           ("grok-1-314b", "adafactor"),
+                                           ("mamba2-780m", "adamw")])
+def test_train_step_on_card_matches_cpu(dev, arch, opt_name):
+    """One train step (grad_accum 2, each layer remat'd) of the smoke
+    model at float32 on the card and on the CPU, the same weights and
+    batch (Grok-1's MoE with Adafactor forced): the loss within 1e-5
+    relative, the grad norm within 1e-4, every optimizer-state leaf
+    within 1e-4 of its scale, every parameter within 5e-5 (the JAX
+    package's own bound after an AdamW step, ``tests/test_training.py``)."""
+    from repro_torch.configs import get_smoke_config, scaled_config
+    from repro_torch.models import init_params
+    from repro_torch.training import (DataConfig, SyntheticLM, adafactor,
+                                      adamw, make_train_step)
+    from repro_torch.training.optimizer import leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = scaled_config(get_smoke_config(arch), dtype="float32")
+    opt = adamw(lr=1e-3) if opt_name == "adamw" else adafactor(lr=1e-3)
+    step = make_train_step(cfg, opt, grad_accum=2)
+    runs = {}
+    for device in ("cpu", dev):
+        params = _tree_to(init_params(cfg, seed=0, device="cpu"), device)
+        state = opt.init(params)
+        batch = SyntheticLM(cfg, DataConfig(seq_len=32, global_batch=4,
+                                            seed=5), device).batch_at(0)
+        runs[str(device)] = step(params, state, batch, 0)
+    (pc, sc, mc), (pg, sg, mg) = runs["cpu"], runs[str(dev)]
+    assert abs(float(mg["loss"]) - float(mc["loss"])) <= 1e-5 * abs(
+        float(mc["loss"]))
+    assert abs(float(mg["grad_norm"]) - float(mc["grad_norm"])) <= 1e-4 * (
+        float(mc["grad_norm"]))
+    got_s, got_p = dict(leaves(sg)), dict(leaves(pg))
+    for name, want in leaves(sc):
+        assert got_s[name].device.type == "cuda"
+        err = float((got_s[name].cpu() - want).abs().max())
+        assert err <= 1e-4 * max(float(want.abs().max()), 1e-30), name
+    for name, want in leaves(pc):
+        assert got_p[name].device.type == "cuda"
+        assert float((got_p[name].cpu() - want).abs().max()) < 5e-5, name
+
+
+_RESUME_CHILD = r"""
+import os, shutil, sys, tempfile
+import torch
+torch.use_deterministic_algorithms(True)
+torch.backends.cuda.matmul.allow_tf32 = False
+from repro_torch.configs import get_smoke_config, scaled_config
+from repro_torch.training import DataConfig, TrainConfig, Trainer, adamw
+from repro_torch.training.optimizer import leaves
+cfg = scaled_config(get_smoke_config("llama31-8b"), dtype="bfloat16")
+d = tempfile.mkdtemp()
+try:
+    def trainer():
+        return Trainer(cfg, TrainConfig(steps=4, ckpt_every=2, ckpt_dir=d,
+                                        seed=3, grad_accum=2),
+                       DataConfig(seq_len=32, global_batch=4),
+                       opt=adamw(lr=1e-3), device="cuda")
+    t1 = trainer()
+    h1 = t1.run()
+    shutil.rmtree(os.path.join(d, "step_000000004"))
+    t2 = trainer()
+    assert t2.init_or_resume() == 2
+    h2 = t2.run()
+    assert [h["loss"] for h in h2] == [h["loss"] for h in h1[2:]], (h1, h2)
+    for a, b in ((t1.params, t2.params), (t1.opt_state, t2.opt_state)):
+        got = dict(leaves(b))
+        for name, want in leaves(a):
+            assert got[name].device.type == "cuda", name
+            assert got[name].dtype == want.dtype, name
+            assert torch.equal(got[name], want), name
+finally:
+    shutil.rmtree(d, ignore_errors=True)
+print("resume_same_bits")
+"""
+
+
+def test_checkpoint_resume_on_card_continues_with_same_bits(dev):
+    """A bf16 smoke model trained 4 steps on the card against 2 steps, a
+    checkpoint, a fresh trainer resuming from it and 2 more: the same
+    losses and the same bits in every parameter and moment.  In a child
+    process with deterministic algorithms (``CUBLAS_WORKSPACE_CONFIG`` set
+    before CUDA starts): the embedding's backward accumulates with
+    atomics otherwise."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=os.pathsep.join(
+                   [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    run = subprocess.run([sys.executable, "-c", _RESUME_CHILD], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stdout[-2000:] + run.stderr[-4000:]
+    assert "resume_same_bits" in run.stdout
