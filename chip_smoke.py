@@ -146,9 +146,34 @@ Phases:
      (c) Mamba2-780m at full width and depth, 2 x 2048 tokens, 4 steps:
      losses finite and falling, tokens/s, peak memory.
 
+  11. The sharded full model (``repro_torch.distributed``: the mesh,
+     ``make_context``, ``shard_decode_state``, ``sharded_decode_attention``,
+     ``moe_ffn_alltoall``; plain PyTorch, every shard on this card) and
+     the serving launcher: (a, after 8, on phase 3's Llama-3.1-8B weights)
+     ``decode_step`` under ``make_context(cfg, mesh, "decode")`` over a
+     sequence-sharded cache against the unsharded ``decode_step`` on the
+     same random caches, 8 teacher-forced tokens, in bf16 and in float32
+     (a copy of the weights): meshes (1, 2) and (1, 4) at B 4 with
+     contexts 8192, 6000, 3000 and 1, and (2, 2) at B 1 with 32768 (the
+     cache's sequence over (data, model)); the worst relative logit
+     error (float32 < 2e-3; bf16 printed beside the unsharded bf16
+     step's own gap from float32), the share of equal argmaxes, ms a
+     token sharded and unsharded (CUDA events), one max and two sums a
+     layer; (b, after 10) Kimi-K2-1T-A32B at full width cut to 1 layer
+     (19.4 B parameters, 36.1 GiB), a forward of 4 x 256 tokens under
+     ``moe_alltoall`` on the (data 4, model 2) mesh, dropless against the
+     local MoE (< 5e-2), then at capacity factor 1.25 (dropped slots of
+     each data shard, finite logits), 2 all-to-alls and 1 sum a layer, ms
+     and peak memory; (c) ``python -m repro_torch.launch.serve``'s
+     ``real``, ``online``, ``--devices 2 --device cuda:0`` and ``sim`` in
+     process at the reference's smoke scale (every request finishes, the
+     fused kernel once a layer a step or the (o, lse) mode once a shard a
+     layer a step, first logits < 2e-3 of the dense reference), and
+     ``--devices 2`` refused on a one-card machine, naming ``cuda:1``.
+
 Phase 9 prints one ``full_model:`` JSON line a model and dtype, phase 10
-one ``train:`` line a run and one ``train_remat:`` line (each with the
-card line).  Prints the card line again, the (o, lse) mode's row and the
+one ``train:`` line a run and one ``train_remat:`` line, phase 11 one
+``sharded_model:`` line a run (each with the card line).  Prints the card line again, the (o, lse) mode's row and the
 kernel table (all three kernels) as JSON lines, and, last, ``{"ok": true, "device":
 {...}}``.  Any failure
 raises (non-zero exit).  Each phase is a function; ``main`` runs them
@@ -2468,6 +2493,370 @@ def train_phase(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the sharded full model and the launcher
+# ---------------------------------------------------------------------------
+
+# (mesh, contexts of the batch's rows): B 4 sequence-sharded over 2 and 4
+# shards, and B 1 (32768 tokens) over a (2, 2) mesh, where the batch does
+# not divide over data and the cache's sequence takes (data, model)
+SHARDED_DECODE_RUNS = (((1, 2), (8192, 6000, 3000, 1)),
+                       ((1, 4), (8192, 6000, 3000, 1)),
+                       ((2, 2), (32768,)))
+SHARDED_DECODE_STEPS = 8
+# Kimi-K2's forward: B 4 x 256 tokens over (data 4, model 2)
+KIMI_MESH, KIMI_BATCH, KIMI_TOKENS = (4, 2), 4, 256
+
+
+def _one_card_mesh(shape):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(shape, ("data", "model"),
+                     devices=["cuda:0"] * math.prod(shape))
+
+
+def _events_ms(fn):
+    """(fn(), its CUDA-event ms)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _random_decode_state(cfg, contexts, slots, dtype):
+    """A decode state at ``contexts`` whose K/V caches hold the same
+    random bf16 values on every call (a seeded generator), in ``dtype``
+    (float32: the bf16 values, exactly)."""
+    import torch
+    from repro_torch.models import init_decode_state
+    state = init_decode_state(dataclasses.replace(cfg, dtype="bfloat16"),
+                              len(contexts), slots)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for key in ("k", "v"):
+        state[key] = state[key].normal_(generator=gen).to(
+            getattr(torch, dtype))
+    state["pos"] = torch.tensor(contexts, dtype=torch.int32, device="cuda")
+    return state
+
+
+def _decode_trajectory(cfg, params, state, tokens, ctx=None):
+    """Teacher-forced ``decode_step`` over ``tokens`` (steps, B) from
+    ``state`` (under ``ctx`` when given): float32 logits (steps, B, V),
+    CUDA-event ms a step, and the collectives of the last step."""
+    import torch
+    from repro_torch.distributed import use_dist
+    from repro_torch.models import decode_step
+    logits, ms, counts = [], [], None
+    with torch.no_grad():
+        for tok in tokens:
+            if ctx is None:
+                (lg, state), t_ms = _events_ms(
+                    lambda: decode_step(params, cfg, state, tok))
+            else:
+                ctx.mesh.log.clear()
+                with use_dist(ctx):
+                    (lg, state), t_ms = _events_ms(
+                        lambda: decode_step(params, cfg, state, tok))
+                counts = ctx.mesh.log.summary(0)
+            logits.append(lg.float())
+            ms.append(t_ms)
+    return torch.stack(logits), ms, counts
+
+
+def sharded_decode_run(card, models, shape, contexts):
+    """(a) One mesh: ``decode_step`` under ``make_context(cfg, mesh,
+    "decode", batch_size=B)`` on a state placed by ``shard_decode_state``
+    (its pieces views of the cache) against the unsharded ``decode_step``,
+    teacher-forced over the same random tokens from the same random
+    caches, in bf16 and in float32 (``models``: dtype -> (cfg, params)).
+    Float32 is held to ``FULL_TOL``: there the comparison sees the
+    sharding. In bf16 a 32-layer decode with random weights is itself
+    far from its float32 (the unsharded step 0.05-0.27 from it on this
+    card, ``PERF.md`` §6), so the bf16 errors are printed beside the
+    unsharded bf16 step's own gap from float32, and held to finite
+    logits. ms a step by CUDA events
+    (the eager, host-bound step as the device's timeline sees it)."""
+    import torch
+    from repro_torch.distributed import make_context
+    from repro_torch.models import shard_decode_state
+    B = len(contexts)
+    L = models["bfloat16"][0].n_layers
+    S = max(contexts) + SHARDED_DECODE_STEPS
+    tokens = torch.randint(
+        0, models["bfloat16"][0].vocab_size, (SHARDED_DECODE_STEPS, B),
+        generator=torch.Generator(device="cuda").manual_seed(5),
+        device="cuda")
+    mesh = _one_card_mesh(shape)
+    counters = _kernel_counts()
+    for fn in counters.values():
+        fn.launches = 0
+    out = {}
+    for dtype, (cfg, params) in models.items():
+        ctx = make_context(cfg, mesh, "decode", batch_size=B)
+        state = _random_decode_state(cfg, contexts, S, dtype)
+        out[dtype] = _decode_trajectory(cfg, params, state, tokens)
+        del state
+        state = _random_decode_state(cfg, contexts, S, dtype)
+        sharded = shard_decode_state(state, ctx)
+        assert all(p.untyped_storage().data_ptr()
+                   == state["k"].untyped_storage().data_ptr()
+                   for p in sharded["k"].pieces)             # views
+        out[dtype + "_sharded"] = _decode_trajectory(cfg, params, sharded,
+                                                     tokens, ctx)
+        del state, sharded
+        torch.cuda.empty_cache()
+    launches = {name: fn.launches for name, fn in counters.items()}
+
+    def worst(a, b):
+        return max(_trel(x, y) for x, y in zip(out[a][0], out[b][0]))
+
+    def equal(a, b):
+        return float((out[a][0].argmax(-1) == out[b][0].argmax(-1))
+                     .float().mean())
+
+    cfg = models["bfloat16"][0]
+    kv = 2 * L * cfg.n_kv_heads * cfg.head_dim * 2          # bf16 a token
+    counts = out["bfloat16_sharded"][2]
+    line = {
+        "run": "decode", "card": card, "model": cfg.name, "layers": L,
+        "mesh": dict(mesh.shape), "batch": B, "contexts": list(contexts),
+        "cache_slots": S, "rules": {k: ctx.rules[k] for k in
+                                    ("batch", "kv_seq")},
+        "kv_gib_held": sum(contexts) * kv / 2**30,
+        "kv_gib_allocated": B * S * kv / 2**30,
+        "steps": SHARDED_DECODE_STEPS,
+        "f32_worst_rel_err": worst("float32_sharded", "float32"),
+        "f32_tolerance": FULL_TOL["float32"],
+        "f32_argmax_equal_share": equal("float32_sharded", "float32"),
+        "bf16_worst_rel_err": worst("bfloat16_sharded", "bfloat16"),
+        "bf16_argmax_equal_share": equal("bfloat16_sharded", "bfloat16"),
+        "bf16_sharded_vs_f32": worst("bfloat16_sharded", "float32"),
+        "bf16_unsharded_vs_f32": worst("bfloat16", "float32"),
+        "ms_per_token": statistics.median(out["bfloat16_sharded"][1][1:]),
+        "unsharded_ms_per_token": statistics.median(
+            out["bfloat16"][1][1:]),
+        "f32_ms_per_token": statistics.median(
+            out["float32_sharded"][1][1:]),
+        "f32_unsharded_ms_per_token": statistics.median(
+            out["float32"][1][1:]),
+        "collectives_per_step": counts, "kernel_launches": launches}
+    print("sharded_model: " + json.dumps(line), flush=True)
+    assert line["f32_worst_rel_err"] < FULL_TOL["float32"], line
+    assert all(bool(torch.isfinite(v[0]).all()) for v in out.values())
+    for name in ("bfloat16_sharded", "float32_sharded"):
+        assert {k: v["count"] for k, v in out[name][2].items()} == {
+            "all-reduce": 3 * L}, out[name][2]
+    n = mesh.size_of(ctx.rules["kv_seq"])
+    assert mesh.log.ops(0) == {("all-reduce", "max", n): L,
+                               ("all-reduce", "sum", n): 2 * L}
+    assert not any(launches.values()), launches    # plain PyTorch path
+    return line
+
+
+def sharded_decode_phase(card, cfg, params):
+    """Phase 11 (a): Llama-3.1-8B (phase 3's weights, and a float32 copy
+    of them) decoding over a sequence-sharded cache on each mesh of
+    ``SHARDED_DECODE_RUNS``."""
+    import torch
+    params32 = {k: {n: t.float() for n, t in v.items()}
+                if isinstance(v, dict) else v.float()
+                for k, v in params.items()}
+    models = {"bfloat16": (cfg, params),
+              "float32": (dataclasses.replace(cfg, dtype="float32"),
+                          params32)}
+    lines = []
+    for shape, contexts in SHARDED_DECODE_RUNS:
+        lines.append(sharded_decode_run(card, models, shape, contexts))
+        gc.collect()
+        torch.cuda.empty_cache()
+    assert lines[-1]["rules"] == {"batch": None,
+                                  "kv_seq": ("data", "model")}, lines[-1]
+    del models, params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return lines
+
+
+def kimi_config():
+    """Kimi-K2-1T-A32B at full width (d 7168, 64 heads of 112, 384
+    experts of d_ff 2048, top 8, vocab 163840) cut to its first layer, so
+    that its weights (36.1 GiB in bf16) fit on one card beside the
+    all-to-all's buffers; and the cuts, as (full, run)."""
+    from repro_torch.configs import get_config
+    full = get_config("kimi-k2-1t-a32b")
+    cfg = dataclasses.replace(full, n_layers=1)
+    return cfg, {"n_layers": [full.n_layers, cfg.n_layers]}
+
+
+def kimi_phase(card):
+    """Phase 11 (b): Kimi-K2's forward of B 4 x 256 tokens under
+    ``moe_alltoall`` on the (data 4, model 2) mesh, every shard on this
+    card: dropless, held to the forward through ``moe_ffn_local`` with the
+    same attention flags; then at the config's capacity factor 1.25,
+    where capacity is counted per data shard (the dropped (token, expert)
+    slots of each shard, from its routing), finite logits.  ms (CUDA
+    events), peak memory and the collectives of the forward."""
+    import torch
+    from repro_torch.distributed import make_context, moe_ep, use_dist
+    from repro_torch.models import forward, init_params
+    cfg, cuts = kimi_config()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0)          # on the card
+    for name in ("wq", "wk"):
+        params["blocks"][name].mul_(math.sqrt(cfg.n_heads / cfg.d_model))
+    torch.cuda.synchronize()
+    leaves = list(params["blocks"].items()) + [
+        (k, t) for k, t in params.items() if k != "blocks"]
+    n_params = sum(t.numel() for _, t in leaves)
+    expert_bytes = sum(t.numel() * t.element_size() for k, t in leaves
+                       if k in ("we1", "we3", "we2"))
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (KIMI_BATCH, KIMI_TOKENS),
+                           generator=gen, device="cuda")
+    batch = {"tokens": tokens}
+    mesh = _one_card_mesh(KIMI_MESH)
+    real_dispatch = moe_ep._dispatch
+    lines = []
+    for run, moe in (("dropless", dataclasses.replace(cfg.moe,
+                                                      dropless=True)),
+                     ("capacity", cfg.moe)):
+        c = dataclasses.replace(cfg, moe=moe)
+        ctx = make_context(c, mesh, "prefill", batch_size=KIMI_BATCH)
+        drops = []
+
+        def counting_dispatch(xt, rw, cfg_):
+            buf, route = real_dispatch(xt, rw, cfg_)
+            drops.append(int((~route["keep"]).sum()))
+            return buf, route
+
+        line = {"run": f"kimi_{run}", "card": card, "model": c.name,
+                "cuts": dict(cuts, **({"moe.dropless": [
+                    cfg.moe.dropless, True]} if run == "dropless" else {})),
+                "params_b": n_params / 1e9,
+                "weights_gib": sum(t.numel() * t.element_size()
+                                   for _, t in leaves) / 2**30,
+                "expert_gib": expert_bytes / 2**30, "init_s": init_s,
+                "mesh": dict(mesh.shape), "batch": KIMI_BATCH,
+                "tokens": KIMI_TOKENS,
+                "capacity_factor": moe.capacity_factor,
+                "rules": {k: ctx.rules[k] for k in
+                          ("batch", "experts", "expert_ffn")}}
+        with torch.no_grad():
+            if run == "dropless":
+                want, line["local_ms"] = _events_ms(lambda: forward(
+                    params, c, batch, banded=True, attn_chunk=512))
+            torch.cuda.reset_peak_memory_stats()
+            mesh.log.clear()
+            moe_ep._dispatch = counting_dispatch
+            try:
+                with use_dist(ctx):
+                    got, line["ms"] = _events_ms(
+                        lambda: forward(params, c, batch))
+            finally:
+                moe_ep._dispatch = real_dispatch
+        line["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        counts = mesh.log.summary(0)
+        line["collectives"] = counts
+        line["dropped_slots_per_data_shard"] = drops
+        line["slots_per_data_shard"] = (KIMI_BATCH // KIMI_MESH[0]
+                                        * KIMI_TOKENS * moe.top_k)
+        assert bool(torch.isfinite(got).all()), line
+        assert got.shape == (KIMI_BATCH, KIMI_TOKENS, cfg.vocab_size)
+        if run == "dropless":
+            line["rel_err_vs_local"] = _trel(got, want)
+            line["tolerance"] = FULL_TOL["bfloat16"]
+            line["argmax_equal_share"] = float(
+                (got.argmax(-1) == want.argmax(-1)).float().mean())
+            del want
+        print("sharded_model: " + json.dumps(line), flush=True)
+        assert len(drops) == KIMI_MESH[0], drops   # one routing a shard
+        if run == "dropless":
+            assert not any(drops), drops
+            assert line["rel_err_vs_local"] < FULL_TOL["bfloat16"], line
+        assert {k: v["count"] for k, v in counts.items()} == {
+            "all-to-all": 2 * cfg.n_layers,
+            "all-reduce": cfg.n_layers}, counts
+        del got
+        lines.append(line)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return lines
+
+
+def launcher_phase(card):
+    """Phase 11 (c): ``repro_torch.launch.serve`` in process at the JAX
+    package's smoke scale on the card: ``real`` and ``online`` (every
+    request finishes; the fused kernel once a layer a step), ``sim``, and
+    ``--devices 2 --device cuda:0`` (the (o, lse) mode once a shard a
+    layer a step); ``--devices 2`` with one card is refused, naming the
+    missing card."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.launch.serve import main, parse_args, serve
+    from repro_torch.models import init_params
+    from repro_torch.serving import RequestState, reference_logits
+    counters = _kernel_counts()
+    lines = []
+    for argv in (["--mode", "real"], ["--mode", "online"],
+                 ["--mode", "real", "--devices", "2", "--device", "cuda:0"],
+                 ["--mode", "sim"]):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        srv, wl, res = serve(parse_args(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        line = {"run": "launcher", "card": card, "argv": argv,
+                "requests": res["n_requests"], "failed": res["n_failed"],
+                "steps": res["steps"], "wall_s": wall,
+                "kernel_launches": launches}
+        assert res["n_failed"] == 0 and res["n_requests"] > 0, res
+        if argv[1] == "sim":
+            assert not any(launches.values()), launches
+        else:
+            L, steps = srv.cfg.n_layers, srv.engine.steps_executed
+            line["engine_steps"] = steps
+            if argv[1] == "online":
+                assert all(s.requests and all(
+                    r.state is RequestState.FINISHED for r in s.requests)
+                    for s in wl.sessions)
+                want = {"msa_fused": srv.engine.attn_dispatches}
+            else:
+                assert all(r.state is RequestState.FINISHED for r in wl)
+                params = init_params(srv.cfg, seed=0)     # the same draw
+                line["worst_rel_err"] = max(
+                    _rel(r.first_logits,
+                         reference_logits(srv.cfg, params, r.prompt_tokens))
+                    for r in wl)
+                assert line["worst_rel_err"] < FULL_TOL["float32"], line
+                n = srv.engine.n_shards
+                want = ({"msa_fused_partial": n * L * steps} if n > 1
+                        else {"msa_fused": L * steps})
+            want = {k: want.get(k, 0) for k in counters}
+            assert launches == want and steps > 0, (launches, want)
+        print("sharded_model: " + json.dumps(line), flush=True)
+        lines.append(line)
+        del srv, wl
+    if torch.cuda.device_count() < 2:
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = main(["--mode", "real", "--devices", "2"])
+        line = {"run": "launcher_refusal", "card": card,
+                "argv": ["--mode", "real", "--devices", "2"], "exit": rc,
+                "stderr": err.getvalue().strip()}
+        print("sharded_model: " + json.dumps(line), flush=True)
+        assert rc != 0 and "cuda:1" in line["stderr"], line
+        lines.append(line)
+    return lines
+
+
+# ---------------------------------------------------------------------------
 # phase 4: where a serving run's device time goes
 # ---------------------------------------------------------------------------
 
@@ -2614,6 +3003,8 @@ def main() -> int:
     sharded_launches = sharded_phase(fused, fused_model)
     del fused_model
     done("8")
+    sharded_decode_phase(card, fused["cfg"], fused["params"])
+    done("11a")
     # Grok-1's ~43 GB of weights must not meet Llama's 16 GB: drop every
     # reference to Llama's weights and pools (the servers hold cycles)
     del fused
@@ -2642,6 +3033,15 @@ def main() -> int:
     assert left < 2.0, left
     train_phase(card)
     done("10")
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2**30
+    print(f"kimi: {left:.2f} GiB of device memory held before phase 11 "
+          "(b)", flush=True)
+    assert left < 2.0, left
+    kimi_phase(card)
+    launcher_phase(card)
+    done("11")
 
     fused_main = fused_results[("main", "bfloat16")]
     src = "src/repro_torch/kernels/msa/csrc/"

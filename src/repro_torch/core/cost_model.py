@@ -158,6 +158,11 @@ class Hardware:
 TPU_V5E = Hardware()
 # the paper's H20 (~148 TFLOP/s bf16, 4.0 TB/s HBM)
 H20 = Hardware(name="h20", flops=148e12, hbm_bw=4.0e12, mfu=0.5)
+# the port's card: NVIDIA's published rates for the H100 80GB HBM3 (SXM,
+# 700 W): 989 TFLOP/s dense bf16, 3.35 TB/s HBM, 450 GB/s of NVLink each
+# way (ici_bw: the link rate of the sharded paths' collectives)
+H100 = Hardware(name="h100-sxm", flops=989e12, hbm_bw=3.35e12,
+                ici_bw=450e9, mfu=0.5)
 
 
 def analytic_cost_model(cfg: ModelConfig, hw: Hardware = TPU_V5E,

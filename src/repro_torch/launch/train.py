@@ -31,7 +31,7 @@ def main(argv=None) -> int:
     if args.dry_run:
         print("repro_torch.launch.train: --dry-run (the full-scale train "
               "step lowered on the production mesh) is not ported yet; "
-              "see ROADMAP.md, Queue 1 item 3", file=sys.stderr)
+              "see ROADMAP.md, Queue 1 item 1", file=sys.stderr)
         return 2
 
     cfg = scaled_config(get_smoke_config(args.arch), dtype="float32")

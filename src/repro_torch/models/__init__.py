@@ -5,9 +5,10 @@ from repro_torch.models.model import (
     init_params,
     loss_fn,
     prep_cross_attention,
+    shard_decode_state,
 )
 
 __all__ = [
     "decode_step", "forward", "init_decode_state", "init_params",
-    "loss_fn", "prep_cross_attention",
+    "loss_fn", "prep_cross_attention", "shard_decode_state",
 ]

@@ -12,7 +12,21 @@ Entry points:
     layers recomputed in the backward by default (training);
   * ``init_decode_state(cfg, batch_size, max_len)``,
     ``prep_cross_attention`` and ``decode_step``: the dense (contiguous
-    per-sequence) decode cache and its one-token step.
+    per-sequence) decode cache and its one-token step;
+  * ``shard_decode_state(state, ctx)``: the decode cache cut over a
+    context's mesh.
+
+Under an active ``DistContext`` (``repro_torch.distributed``) the model
+reads the JAX package's flags: ``moe_alltoall`` takes the MoE through
+the expert-parallel all-to-all (``moe_ffn_alltoall``), ``flash_decode``
+takes decode attention over the sequence-sharded cache
+(``sharded_decode_attention``), and ``banded_attention`` and
+``attn_chunk`` steer ``forward``'s attention as its keyword arguments do
+for callers without a context.  The flags that only steer XLA
+(``unroll_scans``, ``seq_parallel``, ``ar_barrier``) are accepted and
+ignored.  Everything else (norms, projections, MLP, logits) runs on the
+mesh's first device: GSPMD's sharding of those changes where they run,
+not their values.
 
 Parameters are a plain dict with the JAX package's layout: per-layer
 tensors stacked on a leading ``L`` axis under ``params["blocks"]`` (and
@@ -38,6 +52,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import (DistContext, ShardedTensor,
+                                             current, flag, place)
 from repro_torch.models.layers import (apply_rope, banded_flash_attention,
                                        causal_conv1d, causal_conv1d_step,
                                        decode_attention, flash_attention,
@@ -281,10 +297,17 @@ def _ssm_sublayer(x, blk, cfg: ModelConfig):
 
 
 def _ffn_sublayer(x, blk, cfg: ModelConfig):
-    """SwiGLU or the MoE over (B, S, d), or ``None`` without an MLP."""
+    """SwiGLU or the MoE over (B, S, d), or ``None`` without an MLP.  The
+    MoE takes the expert-parallel all-to-all under ``moe_alltoall``."""
     if cfg.moe is not None:
         m = cfg.moe
         h = rms_norm(x, blk["mlp_norm"], cfg.norm_eps)
+        if flag("moe_alltoall", False):
+            # imported here, as the JAX package does: the distributed
+            # package imports the model's layers
+            from repro_torch.distributed.moe_ep import moe_ffn_alltoall
+            return moe_ffn_alltoall(h, blk["router"], blk["we1"],
+                                    blk["we3"], blk["we2"], cfg)
         bsz, L, d = h.shape
         return moe_ffn_local(
             h.reshape(bsz * L, d), blk["router"], blk["we1"], blk["we3"],
@@ -388,7 +411,11 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     product of a prefill.  ``last_only`` computes the last position's
     logits only (B, 1, V).  ``banded`` and ``attn_chunk`` are the JAX
     package's ``banded_attention`` and ``attn_chunk`` flags (the settings
-    ``dist_flags`` gives prefill and training)."""
+    ``dist_flags`` gives prefill and training); under an active context
+    its flags set them instead."""
+    if current() is not None:
+        banded = bool(flag("banded_attention", False))
+        attn_chunk = int(flag("attn_chunk", 1024))
     x = embed_inputs(params, cfg, batch)
     bsz, S = x.shape[:2]
     q_pos = torch.arange(S, device=x.device)[None, :].expand(bsz, S)
@@ -493,7 +520,8 @@ def prep_cross_attention(params: Dict, cfg: ModelConfig,
                          enc_embeds: torch.Tensor, state: Dict) -> Dict:
     """Run the encoder once and cache each layer's cross-attention K/V:
     ``state`` with ``xk``/``xv`` replaced."""
-    enc_out = _encoder_forward(params, cfg, enc_embeds)
+    enc_out = _encoder_forward(params, cfg, enc_embeds,
+                               int(flag("attn_chunk", 1024)))
     blocks = params["blocks"]
     xk = torch.einsum("bsd,ldhk->lbshk", enc_out, blocks["xwk"])
     xv = torch.einsum("bsd,ldhk->lbshk", enc_out, blocks["xwv"])
@@ -507,7 +535,11 @@ def _decode_attn_sublayer(x1, blk, cfg: ModelConfig, k_l, v_l, pos,
     """x1 (B, d), one token a sequence at ``pos`` (B,): its K/V written
     into slot ``min(pos, slots - 1)`` of the layer's cache ``k_l``/``v_l``
     (B, slots, KH, hd) in place, then attention over the first ``pos + 1``
-    slots (or ``kv_len``) -> (B, d)."""
+    slots (or ``kv_len``) -> (B, d).  Under ``flash_decode`` the cache may
+    be a :class:`ShardedTensor` (the piece holding the slot is written)
+    and attention merges the shards' partials."""
+    from repro_torch.distributed.flash_decode import (
+        sharded_decode_attention, write_token)
     h = rms_norm(x1, blk[prefix + "attn_norm"], cfg.norm_eps)
     q = torch.einsum("bd,dhk->bhk", h, blk[prefix + "wq"])
     if rope and cfg.rope_theta > 0:
@@ -518,13 +550,41 @@ def _decode_attn_sublayer(x1, blk, cfg: ModelConfig, k_l, v_l, pos,
         if rope and cfg.rope_theta > 0:
             k_new = apply_rope(k_new[:, None], pos[:, None],
                                cfg.rope_theta)[:, 0]
-        rows = torch.arange(x1.shape[0], device=x1.device)
         slot = torch.clamp_max(pos, k_l.shape[1] - 1).long()
-        k_l[rows, slot] = k_new
-        v_l[rows, slot] = v_new
-    out = decode_attention(q, k_l, v_l, pos + 1 if kv_len is None else kv_len,
-                           window=window, softcap=cfg.attn_logit_softcap)
+        if isinstance(k_l, ShardedTensor):
+            write_token(k_l, slot, k_new)
+            write_token(v_l, slot, v_new)
+        else:
+            rows = torch.arange(x1.shape[0], device=x1.device)
+            k_l[rows, slot] = k_new
+            v_l[rows, slot] = v_new
+    attend = sharded_decode_attention if flag("flash_decode", False) \
+        else decode_attention
+    out = attend(q, k_l, v_l, pos + 1 if kv_len is None else kv_len,
+                 window=window, softcap=cfg.attn_logit_softcap)
     return torch.einsum("bhk,hkd->bd", out, blk[prefix + "wo"])
+
+
+def shard_decode_state(state: Dict, ctx: DistContext) -> Dict:
+    """``state`` with its attention caches (``k``/``v``, and the
+    cross-attention ``xk``/``xv``) cut over ``ctx``'s mesh by
+    ``decode_state_shardings``: :class:`ShardedTensor`s whose pieces are
+    views of the caches where the shard's device is theirs (the sharded
+    state shares memory with ``state`` there).  ``pos`` and the SSM
+    states stay whole on the first device, where the model computes with
+    them."""
+    from repro_torch.distributed.sharding import decode_state_shardings
+    specs = decode_state_shardings(None, ctx.mesh, ctx.rules, state)
+    return {k: place(v, specs[k], ctx.mesh)
+            if k in ("k", "v", "xk", "xv") else v for k, v in state.items()}
+
+
+def _layer_caches(state: Dict, key: str, n: int) -> List:
+    """Layer l's view of a whole or sharded ``(L, ...)`` cache."""
+    c = state[key]
+    if isinstance(c, ShardedTensor):
+        return [c.select(l) for l in range(n)]
+    return list(c)
 
 
 def _decode_ssm_sublayer(x1, blk, cfg: ModelConfig, conv_state, ssm_state):
@@ -552,16 +612,20 @@ def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
     """One decode step of ``tokens`` (B,) at ``state["pos"]``: (logits
     (B, V), the new state).  The caches (``k``, ``v``, ``conv``, ``ssm``)
     are written in place, so the new state shares them with ``state``;
-    its ``pos`` is a new tensor, one further."""
+    its ``pos`` is a new tensor, one further.  Under a decode context the
+    attention caches may be sharded (:func:`shard_decode_state`)."""
     pos = state["pos"]
     x = params["embed"][tokens]
     if cfg.rope_theta <= 0:
         x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
+    L = cfg.n_layers
+    caches = {k: _layer_caches(state, k, L)
+              for k in ("k", "v", "xk", "xv") if k in state}
     for l, (blk, window) in enumerate(zip(
-            _layers(params["blocks"]), _layer_windows(cfg, cfg.n_layers))):
+            _layers(params["blocks"]), _layer_windows(cfg, L))):
         if cfg.family != "ssm":
-            a = _decode_attn_sublayer(x, blk, cfg, state["k"][l],
-                                      state["v"][l], pos, window)
+            a = _decode_attn_sublayer(x, blk, cfg, caches["k"][l],
+                                      caches["v"][l], pos, window)
         if cfg.ssm is not None:
             m, conv, ssm = _decode_ssm_sublayer(
                 x, blk, cfg, state["conv"][l], state["ssm"][l])
@@ -575,7 +639,7 @@ def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
             x = x + a
         if cfg.enc_dec:
             x = x + _decode_attn_sublayer(
-                x, blk, cfg, state["xk"][l], state["xv"][l], pos, None,
+                x, blk, cfg, caches["xk"][l], caches["xv"][l], pos, None,
                 prefix="x", rope=False, update_cache=False,
                 kv_len=torch.full_like(pos, cfg.encoder_len))
         ffn = _ffn_sublayer(x[:, None, :], blk, cfg)

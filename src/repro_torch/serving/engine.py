@@ -75,9 +75,8 @@ from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.offload import (HostHalf, dequantize_half, f8_codes,
                                       f8_values)
-from repro_torch.distributed import (ShardGroup, serving_param_shardings,
-                                     shard_params, sharded_msa_fused,
-                                     sharded_pool_ops)
+from repro_torch.distributed import (serving_param_shardings, shard_params,
+                                     sharded_msa_fused, sharded_pool_ops)
 from repro_torch.distributed.flash_decode import shard_tables
 from repro_torch.kernels.msa import (
     UNIT_FIELDS,
@@ -92,6 +91,7 @@ from repro_torch.kernels.msa import (
     pad_worklist,
     write_kv_pages,
 )
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models.layers import (apply_rope, moe_ffn_local, rms_norm,
                                        swiglu_mlp)
 from repro_torch.models.model import _layer_windows
@@ -321,7 +321,9 @@ class Engine:
             raise ValueError("snap='int8' needs snap_scale > 0")
         self.cfg = cfg
         self.ecfg = ecfg
-        group = None if shard_devices is None else ShardGroup(shard_devices)
+        # the (data=1, model=N) serving mesh's model group
+        group = None if shard_devices is None else make_serving_mesh(
+            len(shard_devices), devices=shard_devices).group("model")
         self.group = group if group is not None and group.n > 1 else None
         self.n_shards = 1 if self.group is None else self.group.n
         if self.n_shards > 1:

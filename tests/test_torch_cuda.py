@@ -22,8 +22,10 @@ payload control arm, and the full model (forward, banded forward and
 teacher-forced decode of the SSM, hybrid, encoder-decoder and
 local/global smoke models) on the card against the CPU, a train step of
 the Llama, Grok-1 (Adafactor) and Mamba-2 smoke models on the card
-against the CPU, and a checkpoint resume on the card that continues with
-the same bits.
+against the CPU, a checkpoint resume on the card that continues with
+the same bits, and the sharded full model's pieces (the sequence-sharded
+decode attention and the all-to-all MoE) with every shard of a mesh on
+the card against the same mesh on the CPU.
 
 Marked ``cuda``; each test skips without a card.  Run on the card with
 ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.  Imports no JAX,
@@ -1053,3 +1055,88 @@ def test_checkpoint_resume_on_card_continues_with_same_bits(dev):
                          capture_output=True, text=True, timeout=600)
     assert run.returncode == 0, run.stdout[-2000:] + run.stderr[-4000:]
     assert "resume_same_bits" in run.stdout
+
+
+# ---------------------------------------------------------------------------
+# the sharded full model (plain PyTorch) with its shards on the card
+# ---------------------------------------------------------------------------
+
+def _card_and_cpu_meshes(dev, shape):
+    from repro_torch.launch.mesh import make_mesh
+    n = int(np.prod(shape))
+    return (make_mesh(shape, ("data", "model"), devices=[dev] * n),
+            make_mesh(shape, ("data", "model"), devices=["cpu"] * n))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,rules,B", [
+    ((2, 4), {"batch": "data", "kv_seq": "model"}, 4),
+    ((2, 2), {"batch": None, "kv_seq": ("data", "model")}, 1)])
+@pytest.mark.parametrize("S,window,softcap", [(64, None, 0.0),
+                                              (30, None, 0.0),
+                                              (64, 9, 20.0)])
+def test_sharded_decode_attention_on_card_matches_cpu(dev, dtype, shape,
+                                                      rules, B, S, window,
+                                                      softcap):
+    """The sequence-sharded decode attention with every shard on the card
+    against the same shards on the CPU (S 30 over 4 shards: the cache
+    whole on every shard)."""
+    from repro_torch.distributed import (DistContext,
+                                         sharded_decode_attention, use_dist)
+    rng = np.random.default_rng(S + B)
+    H, KH, D = 8, 2, 64
+    q = torch.from_numpy(rng.standard_normal((B, H, D)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((B, S, KH, D)).astype(
+        np.float32)).to(dtype) for _ in range(2))
+    q = q.to(dtype)
+    kv_len = torch.tensor([S, 40, 9, 1][:B], dtype=torch.int32).clamp_max(S)
+    outs = []
+    for mesh in _card_and_cpu_meshes(dev, shape):
+        d = mesh.device(0)
+        with use_dist(DistContext(mesh, rules, {})):
+            outs.append(sharded_decode_attention(
+                q.to(d), k.to(d), v.to(d), kv_len.to(d), window=window,
+                softcap=softcap).float().cpu())
+        n = mesh.size_of(rules["kv_seq"])
+        assert mesh.log.ops(0) == {("all-reduce", "max", n): 1,
+                                   ("all-reduce", "sum", n): 2}
+    err = float((outs[0] - outs[1]).abs().max())
+    assert err <= TOL[dtype] * max(1.0, float(outs[1].abs().max())), err
+
+
+@pytest.mark.parametrize("dropless", [True, False])
+def test_moe_alltoall_on_card_matches_cpu(dev, dropless):
+    """Kimi-K2's smoke MoE through the all-to-all on a (data 4, model 2)
+    mesh of the card against the same mesh on the CPU, dropless and at
+    capacity factor 1.25 (routing decided per data shard in both), in
+    float32: in bf16 a router logit that rounds the other way on the other
+    device picks another expert, which no tolerance covers."""
+    dtype = torch.float32
+    import dataclasses
+    from repro_torch.configs import get_smoke_config, scaled_config
+    from repro_torch.distributed import make_context, moe_ffn_alltoall, \
+        use_dist
+    from repro_torch.models import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = scaled_config(get_smoke_config("kimi-k2-1t-a32b"),
+                         dtype="float32")
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, dropless=dropless, capacity_factor=1.25))
+    blk = {k: v[0].to(dtype) for k, v in
+           init_params(cfg, seed=0, device="cpu")["blocks"].items()}
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (4, 16, cfg.d_model)).astype(np.float32)).to(dtype)
+    outs = []
+    for mesh in _card_and_cpu_meshes(dev, (4, 2)):
+        d = mesh.device(0)
+        with use_dist(make_context(cfg, mesh, "train", batch_size=4)):
+            outs.append(moe_ffn_alltoall(
+                x.to(d), *(blk[k].to(d) for k in
+                           ("router", "we1", "we3", "we2")),
+                cfg).float().cpu())
+        assert mesh.log.ops(0) == {("all-to-all", "", 4): 2,
+                                   ("all-reduce", "sum", 2): 1}
+    scale = float(outs[1].abs().max())
+    err = float((outs[0] - outs[1]).abs().max()) / scale
+    assert err <= TOL[dtype], err
