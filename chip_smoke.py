@@ -170,14 +170,34 @@ Phases:
      fused kernel once a layer a step or the (o, lse) mode once a shard a
      layer a step, first logits < 2e-3 of the dense reference), and
      ``--devices 2`` refused on a one-card machine, naming ``cuda:1``.
+  12. The dry run (``repro_torch.launch.dryrun``: shapes on the meta
+     device, FLOPs by ``FlopCounterMode``, bytes from the sharding trees)
+     held against the card, each part where its model is already there:
+     (c, after 3) the lattice auditor's footprint (``analysis.lattice``)
+     of the largest bucket phase 3's fused Llama-3.1-8B run dispatched,
+     plus the pool and the parameters, against phase 3's measured peak;
+     (b, after 11 a, phase 3's weights) Llama-3.1-8B decode at B 4
+     (contexts 8192, 6000, 3000 and 1, phase 11's cache): at (1, 1) the
+     dry run's FLOPs a step equal ``FlopCounterMode``'s count of a real
+     step on the card, and at (1, 2) its logged collectives a step equal
+     phase 11's ``CollectiveLog`` (96 all-reduces: one max and two sums a
+     layer); (a, after 10) phase 10's Llama-3.1-8B train cell (8 layers,
+     4 x 2048, ``grad_accum`` 2, AdamW, bf16, remat) under its (1, 1)
+     train context: argument bytes equal the step's params, optimizer
+     state and (int32) batch on the card, the dry run's FLOPs equal the
+     count of a real step, and the measured peak over the predicted one
+     lies in ``DRYRUN_PEAK_BAND``; the CUDA-event ms of a step beside the
+     roofline's bound.  One ``dryrun:`` JSON line a case, after the card
+     line.
 
 Phase 9 prints one ``full_model:`` JSON line a model and dtype, phase 10
 one ``train:`` line a run and one ``train_remat:`` line, phase 11 one
-``sharded_model:`` line a run (each with the card line).  Prints the card line again, the (o, lse) mode's row and the
-kernel table (all three kernels) as JSON lines, and, last, ``{"ok": true, "device":
-{...}}``.  Any failure
-raises (non-zero exit).  Each phase is a function; ``main`` runs them
-all in order.
+``sharded_model:`` line a run, phase 12 one ``dryrun:`` line a case
+(each with the card line).  Prints the card line again, the (o, lse)
+mode's row and the kernel table (all three kernels) as JSON lines, and,
+last, ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero
+exit).  Each phase is a function; ``main`` runs them all in order
+(phase 12's parts after the phases whose models they reuse).
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
 from __future__ import annotations
@@ -1255,6 +1275,7 @@ def serve_phase():
                                      multi_turn_workload, reference_logits)
     cfg = get_config("llama31-8b")             # 32 layers, d 4096, bf16
     t0 = time.perf_counter()
+    base_bytes = torch.cuda.memory_allocated()
     params = init_params(cfg, seed=0)          # on the card
     # init_params draws wq/wk at 1/sqrt(H) like the reference's init; at
     # head_dim 128 that makes q and k of std ~11 and attention scores of
@@ -1300,6 +1321,7 @@ def serve_phase():
     srv = make_server()
     wl = make_workload(seed=0)
     res, seg_chunks, launches = _measured_run(srv, lambda: srv.run(wl))
+    peak_bytes = torch.cuda.max_memory_allocated() - base_bytes
     steps = srv.engine.steps_executed
     print("serve: " + json.dumps(_serve_line(wl, res, seg_chunks, launches)),
           flush=True)
@@ -1330,7 +1352,8 @@ def serve_phase():
     assert worst < LOGIT_REL_TOL, worst
     return dict(cfg=cfg, params=params, launches=launches,
                 make_server=make_server, make_workload=make_workload, wl=wl,
-                refs=refs)
+                refs=refs, peak_bytes=peak_bytes, ecfg=srv.engine.ecfg,
+                buckets_used=sorted(srv.engine.buckets_used))
 
 
 # ---------------------------------------------------------------------------
@@ -2860,6 +2883,196 @@ def launcher_phase(card):
 # phase 4: where a serving run's device time goes
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 12: the dry run's predictions held against the card
+# ---------------------------------------------------------------------------
+
+# measured peak / the dry run's predicted peak of phase 10's Llama train
+# cell, and measured / the lattice's footprint of phase 3's largest
+# bucket: the bands PERF.md states, written before the first run on the card
+DRYRUN_PEAK_BAND = (0.95, 1.15)
+LATTICE_PEAK_BAND = (0.95, 1.10)
+
+
+def _dryrun_line(card, case, line):
+    print(card, flush=True)
+    print("dryrun: " + json.dumps(dict(case=case, card=card, **line),
+                                  default=float), flush=True)
+
+
+def _abstract_mesh(shape):
+    from repro_torch.launch.mesh import abstract_mesh
+    return abstract_mesh(shape, ("data", "model"))
+
+
+def dryrun_lattice_phase(card, fused):
+    """Phase 12 (c): the lattice auditor's footprint of the largest bucket
+    phase 3's fused run dispatched (its buffers on the meta device, plus
+    the KV pool and the parameters) against phase 3's measured peak (above
+    what the card held before its weights)."""
+    from repro_torch.analysis import lattice
+    cfg, ecfg = fused["cfg"], fused["ecfg"]
+    report, _ = lattice.bucket_footprints(cfg, ecfg)
+    used = {(t, n) for t, n, _, _ in fused["buckets_used"]}
+    rows = [b for b in report["per_bucket"]
+            if (b["t_bucket"], b["np_bucket"]) in used and b["k"] == 1]
+    big = max(rows, key=lambda b: b["total_bytes"])
+    ratio = fused["peak_bytes"] / big["total_bytes"]
+    line = {"model": cfg.name,
+            "bucket": [big["t_bucket"], big["np_bucket"]],
+            "buckets_dispatched": len(fused["buckets_used"]),
+            "params_bytes": report["params_bytes"],
+            "kv_pool_bytes": report["kv_pool_bytes"],
+            "bucket_buffer_bytes": big["buffer_bytes"],
+            "predicted_bytes": big["total_bytes"],
+            "measured_peak_bytes": fused["peak_bytes"],
+            "measured_over_predicted": ratio,
+            "band": LATTICE_PEAK_BAND}
+    _dryrun_line(card, "lattice", line)
+    lo, hi = LATTICE_PEAK_BAND
+    assert lo <= ratio <= hi, line
+
+
+def dryrun_decode_phase(card, cfg, params, decode_lines):
+    """Phase 12 (b): Llama-3.1-8B decode at B 4 over phase 11's contexts
+    and cache.  At (1, 1) the dry run's FLOPs a step equal
+    ``FlopCounterMode``'s count of a real unsharded step on the card; at
+    (1, 2) its logged collectives a step equal phase 11's
+    ``CollectiveLog`` of the sharded step.  The reckoned ones, which
+    GSPMD would add for the tensor-parallel projections and the port's
+    path does not issue, are printed beside."""
+    import torch
+    from repro_torch.configs import SHAPE_BY_NAME
+    from repro_torch.launch import dryrun
+    from repro_torch.models import decode_step
+    mesh_shape, contexts = SHARDED_DECODE_RUNS[0]
+    slots = max(contexts) + SHARDED_DECODE_STEPS
+    shape = dataclasses.replace(SHAPE_BY_NAME["decode_32k"], seq_len=slots,
+                                global_batch=len(contexts))
+    t0 = time.perf_counter()
+    one = dryrun.dry_run(cfg, shape, _abstract_mesh((1, 1)))
+    two = dryrun.dry_run(cfg, shape, _abstract_mesh(mesh_shape))
+    dry_s = time.perf_counter() - t0
+    state = _random_decode_state(cfg, contexts, slots, "bfloat16")
+    tokens = torch.tensor([3, 5, 7, 9], dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        flops = dryrun.count_flops(
+            lambda: decode_step(params, cfg, state, tokens))
+    del state
+    torch.cuda.empty_cache()
+    card_line = next(ln for ln in decode_lines
+                     if tuple(ln["mesh"].values()) == mesh_shape)
+    card_log = card_line["collectives_per_step"]
+    tot = two["costs_per_device"]
+    logged = {}
+    for key, value in tot.items():
+        if key.startswith("wire:logged:"):
+            kind = key.split(":")[2]
+            logged[kind] = {"count": tot[f"count:logged:{kind}"],
+                            "wire_bytes": value}
+    rf = one["roofline"]
+    line = {"model": cfg.name, "layers": cfg.n_layers,
+            "contexts": list(contexts), "cache_slots": slots,
+            "dry_run_s": dry_s,
+            "predicted_flops": one["costs_per_device"]["flops"],
+            "measured_flops": flops,
+            "predicted_bound_ms": rf["bound_s"] * 1e3,
+            "bound_by": rf["bottleneck"],
+            "bytes_min": one["costs_per_device"]["bytes_min"],
+            "measured_ms_per_token": card_line["unsharded_ms_per_token"],
+            "mesh": list(mesh_shape), "predicted_logged": logged,
+            "card_log": card_log,
+            "reckoned": {k: v for k, v in tot.items() if ":reckoned:" in k}}
+    _dryrun_line(card, "decode", line)
+    assert line["predicted_flops"] == flops > 0, line
+    assert set(logged) == set(card_log), line
+    for kind, v in card_log.items():
+        assert logged[kind]["count"] == v["count"], line
+        assert abs(logged[kind]["wire_bytes"] - v["wire_bytes"]) \
+            <= 1e-9 * v["wire_bytes"], line
+    assert card_log["all-reduce"]["count"] == 3 * cfg.n_layers, line
+    return line
+
+
+def dryrun_train_phase(card):
+    """Phase 12 (a): phase 10's Llama-3.1-8B train cell (8 layers, 4 x
+    2048, ``grad_accum`` 2, AdamW, bf16, remat) under its (1, 1) train
+    context (the banded attention the dry run's flags give it), against
+    the dry run of the same cell: argument bytes equal the step's params,
+    optimizer state and int32 batch on the card; the dry run's FLOPs
+    equal ``FlopCounterMode``'s count of a real step; the peak above the
+    memory held before the model, over the predicted peak, lies in
+    ``DRYRUN_PEAK_BAND``.  A first step warms up, a second is counted, a
+    third is timed (CUDA events) with the peak statistics reset before
+    it."""
+    import torch
+    from repro_torch.configs import SHAPE_BY_NAME
+    from repro_torch.distributed import make_context, use_dist
+    from repro_torch.launch import dryrun
+    from repro_torch.training import DataConfig, SyntheticLM, make_train_step
+    from repro_torch.training.optimizer import for_arch, leaves
+    arch, n_layers, seq, batch, accum, _ = TRAIN_RUNS[0]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    cfg, params = _full_model(arch, "bfloat16", n_layers)
+    shape = dataclasses.replace(SHAPE_BY_NAME["train_4k"], seq_len=seq,
+                                global_batch=batch)
+    t0 = time.perf_counter()
+    rec = dryrun.dry_run(cfg, shape, _abstract_mesh((1, 1)),
+                         grad_accum=accum)
+    dry_s = time.perf_counter() - t0
+    opt = for_arch(cfg.param_count())
+    state = opt.init(params)
+    data = SyntheticLM(cfg, DataConfig(seq_len=seq, global_batch=batch,
+                                       seed=17)).batch_at(0)
+    data = {k: v.int() for k, v in data.items()}     # the dry run's int32
+    held = sum(t.numel() * t.element_size()
+               for tree in (params, state, data) for _, t in leaves(tree))
+    parts = rec["meta"]["argument_parts"]
+    predicted_args = parts["params"] + parts["opt_state"] + parts["batch"]
+    step = make_train_step(cfg, opt, grad_accum=accum)
+    ctx = make_context(cfg, _one_card_mesh((1, 1)), "train",
+                       batch_size=batch)
+    with use_dist(ctx):
+        step(params, state, data, 0)                  # warm-up
+        flops = dryrun.count_flops(lambda: step(params, state, data, 1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, ms = _events_ms(lambda: step(params, state, data, 2))
+    peak = torch.cuda.max_memory_allocated() - base
+    mem, rf = rec["memory"], rec["roofline"]
+    line = {"model": cfg.name, "layers": n_layers, "seq_len": seq,
+            "global_batch": batch, "grad_accum": accum,
+            "optimizer": opt.name, "dry_run_s": dry_s,
+            "predicted_argument_bytes": predicted_args,
+            "measured_argument_bytes": held,
+            "predicted_peak_bytes": mem["peak_bytes"],
+            "predicted_temp_bytes": mem["temp_bytes"],
+            "measured_peak_bytes": peak,
+            "measured_over_predicted_peak": peak / mem["peak_bytes"],
+            "band": DRYRUN_PEAK_BAND,
+            "predicted_flops": rec["costs_per_device"]["flops"],
+            "measured_flops": flops,
+            "predicted_bound_ms": rf["bound_s"] * 1e3,
+            "predicted_compute_ms": rf["compute_s"] * 1e3,
+            "predicted_memory_ms": rf["memory_s"] * 1e3,
+            "bytes_min": rec["costs_per_device"]["bytes_min"],
+            "bytes_unfused": rec["costs_per_device"]["bytes_unfused"],
+            "bound_by": rf["bottleneck"], "measured_step_ms": ms,
+            "measured_over_bound": ms / (rf["bound_s"] * 1e3),
+            "measured_share_of_bf16_peak":
+                flops / (ms / 1e3) / PEAK_FLOPS["bfloat16"]}
+    _dryrun_line(card, "train", line)
+    del params, state, data, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert held == predicted_args, line
+    assert line["predicted_flops"] == flops > 0, line
+    lo, hi = DRYRUN_PEAK_BAND
+    assert lo <= line["measured_over_predicted_peak"] <= hi, line
+    return line
+
+
 def profile_phase(make_server, make_workload, mode="fused", n_requests=2):
     """torch.profiler (CUDA activity: the device's kernels and copies; the
     host's ops are not recorded, whose events took minutes to gather over
@@ -2990,6 +3203,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     fused = serve_phase()
     done("3")
+    dryrun_lattice_phase(card, fused)
+    done("12c")
     split_launches, fused_model = split_serve_phase(fused)
     done("3b")
     for mode in ("fused", "split"):
@@ -3003,8 +3218,10 @@ def main() -> int:
     sharded_launches = sharded_phase(fused, fused_model)
     del fused_model
     done("8")
-    sharded_decode_phase(card, fused["cfg"], fused["params"])
+    decode_lines = sharded_decode_phase(card, fused["cfg"], fused["params"])
     done("11a")
+    dryrun_decode_phase(card, fused["cfg"], fused["params"], decode_lines)
+    done("12b")
     # Grok-1's ~43 GB of weights must not meet Llama's 16 GB: drop every
     # reference to Llama's weights and pools (the servers hold cycles)
     del fused
@@ -3033,6 +3250,10 @@ def main() -> int:
     assert left < 2.0, left
     train_phase(card)
     done("10")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_train_phase(card)
+    done("12a")
     gc.collect()
     torch.cuda.empty_cache()
     left = torch.cuda.memory_allocated() / 2**30

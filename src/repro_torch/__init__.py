@@ -15,14 +15,16 @@ import torch
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on.  A CUDA device with no card
     present raises here instead of failing deep inside the first
-    allocation; there is no silent fallback to the CPU."""
+    allocation; there is no silent fallback to the CPU.  The meta device
+    (shapes and dtypes only) serves the dry run."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch: device='cuda' requested but no CUDA device is "
             "available (pass device='cpu' to run the plain versions)")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', not {dev}")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"repro_torch runs on 'cuda' or 'cpu' (or 'meta', "
+                         f"shapes only), not {dev}")
     return dev
 
 

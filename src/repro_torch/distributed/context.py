@@ -73,10 +73,13 @@ def make_serving_devices(n_shards: int,
 
 #: ring-algorithm wire bytes a device per byte of its operand
 #: (``repro.roofline.hlo``): all-reduce 2 x in x (n-1)/n, all-gather
-#: out x (n-1)/n, all-to-all in x (n-1)/n
-_RING = {"all-reduce": lambda b, n: 2.0 * b * (n - 1) / n,
-         "all-gather": lambda b, n: b * (n - 1) / n,
-         "all-to-all": lambda b, n: b * (n - 1) / n}
+#: out x (n-1)/n, reduce-scatter and all-to-all in x (n-1)/n,
+#: collective-permute in.  Kinds are HLO's names, with dashes.
+RING_FACTORS = {"all-reduce": lambda b, n: 2.0 * b * (n - 1) / n,
+                "all-gather": lambda b, n: b * (n - 1) / n,
+                "reduce-scatter": lambda b, n: b * (n - 1) / n,
+                "all-to-all": lambda b, n: b * (n - 1) / n,
+                "collective-permute": lambda b, n: float(b)}
 
 
 @dataclass(frozen=True)
@@ -128,7 +131,7 @@ class CollectiveLog:
         for c, k in self.counts.items():
             if rank in c.ranks:
                 s = out.setdefault(c.kind, {"wire_bytes": 0.0, "count": 0})
-                s["wire_bytes"] += k * _RING[c.kind](c.shard_bytes, c.n)
+                s["wire_bytes"] += k * RING_FACTORS[c.kind](c.shard_bytes, c.n)
                 s["count"] += k
         return out
 

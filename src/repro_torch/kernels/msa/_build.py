@@ -106,14 +106,18 @@ def build(names: Iterable[str], check: bool = False) -> Dict[str, float]:
                str(CSRC / f"{name}.cu")]
         with open(tmp + ".log", "w") as log:
             proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+        # repro: allow(step-hazard) — build time: before any capture
         procs.append((name, so, tmp, cmd, proc, time.perf_counter()))
     while any(p[4].poll() is None for p in procs):
         for name, _, _, _, proc, t0 in procs:
             if proc.returncode is not None and name not in secs:
+                # repro: allow(step-hazard) — build time: before any capture
                 secs[name] = time.perf_counter() - t0
+        # repro: allow(step-hazard) — build time: before any capture
         time.sleep(0.05)
     failed = []
     for name, so, tmp, cmd, proc, t0 in procs:
+        # repro: allow(step-hazard) — build time: before any capture
         secs.setdefault(name, time.perf_counter() - t0)
         if proc.returncode != 0:
             os.unlink(tmp)
@@ -145,6 +149,7 @@ def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
         for fn, (restype, argtypes) in signatures.items():
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = argtypes
+        # repro: allow(step-hazard) — load time, once: before any capture
         _libs[(name, check)] = lib
     return lib
 

@@ -88,6 +88,8 @@ def msa_prefill_cuda(
         *ptrs, r, qp, h, kh, d, page, np_, q_tile, piece_pages, pieces,
         int(window), float(softcap), _build.DTYPE_CODE[q.dtype], stream)
     _build.raise_on_error(lib, "msa_prefill", err)
+    # repro: allow(step-hazard) — host side effect: a CUDA graph's replay
+    # would not count its launches (ROADMAP, Queue 1: the CUDA graph)
     msa_prefill_cuda.launches += 1
     return out
 

@@ -3,9 +3,11 @@
 
 Trains the architecture's float32 smoke config for real, on the card
 (``--device cuda``, the default) or on the CPU (``--device cpu``), resuming
-from the newest checkpoint in ``--ckpt-dir`` if there is one.  The JAX
-package's ``--dry-run`` (lowering the full-scale train step on the
-production mesh) is not ported yet: it is refused with a non-zero exit.
+from the newest checkpoint in ``--ckpt-dir`` if there is one.  With
+``--dry-run`` it instead dry-runs the architecture's full-scale
+``train_4k`` step on the production mesh (``repro_torch.launch.dryrun``,
+on the meta device: no card needed) and exits 0 when the record's status
+is ``ok``.
 """
 from __future__ import annotations
 
@@ -29,10 +31,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        print("repro_torch.launch.train: --dry-run (the full-scale train "
-              "step lowered on the production mesh) is not ported yet; "
-              "see ROADMAP.md, Queue 1 item 1", file=sys.stderr)
-        return 2
+        from repro_torch.launch import dryrun
+        rec = dryrun.run_cell(args.arch, "train_4k", multi_pod=False,
+                              force=True)
+        return 0 if rec["status"] == "ok" else 1
 
     cfg = scaled_config(get_smoke_config(args.arch), dtype="float32")
     tr = Trainer(cfg,

@@ -1,4 +1,5 @@
 from repro_torch.models.model import (
+    abstract_params,
     decode_step,
     forward,
     init_decode_state,
@@ -9,6 +10,6 @@ from repro_torch.models.model import (
 )
 
 __all__ = [
-    "decode_step", "forward", "init_decode_state", "init_params",
+    "abstract_params", "decode_step", "forward", "init_decode_state", "init_params",
     "loss_fn", "prep_cross_attention", "shard_decode_state",
 ]

@@ -182,6 +182,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict:
     return build(param_defs(cfg))
 
 
+def abstract_params(cfg: ModelConfig) -> Dict:
+    """Every parameter as a tensor on the meta device: its shape and
+    ``cfg.dtype``, no memory and no values (the JAX package's
+    ``abstract_params``; the dry run sizes and runs a model with them)."""
+    dt = torch_dtype(cfg.dtype)
+
+    def build(defs):
+        return {k: build(v) if isinstance(v, dict)
+                else torch.empty(v[0], dtype=dt, device="meta")
+                for k, v in defs.items()}
+
+    return build(param_defs(cfg))
+
+
 def _layer_windows(cfg: ModelConfig, n_layers: int) -> List[int]:
     """Per-layer attention window (0 = full attention)."""
     return [cfg.sliding_window
@@ -470,14 +484,17 @@ def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict, *,
 
 
 def init_decode_state(cfg: ModelConfig, batch_size: int, max_len: int, *,
-                      device="cuda") -> Dict[str, torch.Tensor]:
+                      device="cuda", abstract: bool = False
+                      ) -> Dict[str, torch.Tensor]:
     """The dense (contiguous per-sequence) decode cache, zeroed: ``pos``
     (B,) int32; ``k``/``v`` (L, B, max_len, KH, hd) for attention;
     ``conv`` (L, B, d_conv - 1, conv_dim) and float32 ``ssm``
     (L, B, nh, head_dim, d_state) for an SSM; ``xk``/``xv``
     (L, B, encoder_len, KH, hd) for cross-attention
     (:func:`prep_cross_attention` fills them).  The serving engine uses
-    the paged layout instead.
+    the paged layout instead.  ``abstract`` gives the same tensors on
+    the meta device (shapes and dtypes, no memory), as the JAX package's
+    ``abstract=True`` gives ``ShapeDtypeStruct``s.
 
     A pure sliding-window model (``sliding_window > 0`` with no
     local:global ratio) is refused past its window: the JAX package gives
@@ -491,7 +508,7 @@ def init_decode_state(cfg: ModelConfig, batch_size: int, max_len: int, *,
             f"{cfg.name}: a pure sliding-window cache (window "
             f"{cfg.sliding_window}, no local:global ratio) needs a ring "
             "buffer that decode_step does not keep")
-    dev = resolve_device(device)
+    dev = torch.device("meta") if abstract else resolve_device(device)
     dt = torch_dtype(cfg.dtype)
     L = cfg.n_layers
 

@@ -51,6 +51,13 @@ def value_and_grad(params: Dict, cfg: ModelConfig, batch: Dict, *,
     return loss.detach(), dict(zip(inputs, grads))
 
 
+def accum_dtype_for(cfg: ModelConfig) -> torch.dtype:
+    """The gradient accumulator's dtype with ``grad_accum > 1``: float32,
+    or bf16 from 100B parameters (there a float32 accumulator alone is
+    twice the parameters' bytes), as the JAX package chooses."""
+    return torch.bfloat16 if cfg.param_count() >= 100e9 else torch.float32
+
+
 def make_train_step(cfg: ModelConfig, opt: Optimizer, grad_accum: int = 1,
                     accum_dtype: Optional[torch.dtype] = None) -> Callable:
     """Returns ``train_step(params, opt_state, batch, step) -> (params,
@@ -60,16 +67,13 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, grad_accum: int = 1,
     squares over every gradient leaf) as 0-dim tensors on the device, and
     ``step`` + 1.
 
-    ``accum_dtype``: the accumulator's dtype with ``grad_accum > 1``:
-    float32, or bf16 from 100B parameters (there a float32 accumulator
-    alone is twice the parameters' bytes), as the JAX package chooses.
-    Each microbatch's gradients are added to it, then scaled by
-    ``1 / grad_accum``."""
+    ``accum_dtype``: the accumulator's dtype with ``grad_accum > 1``
+    (default :func:`accum_dtype_for`).  Each microbatch's gradients are
+    added to it, then scaled by ``1 / grad_accum``."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum={grad_accum} must be at least 1")
     if accum_dtype is None:
-        accum_dtype = (torch.bfloat16 if cfg.param_count() >= 100e9
-                       else torch.float32)
+        accum_dtype = accum_dtype_for(cfg)
 
     def compute_grads(params, batch):
         if grad_accum == 1:

@@ -25,7 +25,9 @@ the Llama, Grok-1 (Adafactor) and Mamba-2 smoke models on the card
 against the CPU, a checkpoint resume on the card that continues with
 the same bits, and the sharded full model's pieces (the sequence-sharded
 decode attention and the all-to-all MoE) with every shard of a mesh on
-the card against the same mesh on the CPU.
+the card against the same mesh on the CPU, and the dry run's FLOPs of a
+train step (``repro_torch.launch.dryrun``, on the meta device) against
+the count of the same step on the card.
 
 Marked ``cuda``; each test skips without a card.  Run on the card with
 ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.  Imports no JAX,
@@ -1140,3 +1142,46 @@ def test_moe_alltoall_on_card_matches_cpu(dev, dropless):
     scale = float(outs[1].abs().max())
     err = float((outs[0] - outs[1]).abs().max()) / scale
     assert err <= TOL[dtype], err
+
+
+# ---------------------------------------------------------------------------
+# The dry run (repro_torch.launch.dryrun) against the card
+
+
+def test_dry_run_train_flops_equal_the_card_step(dev):
+    """``chip_smoke.py`` phase 12 (a) at 2 layers: Llama-3.1-8B at full
+    width, 2 layers, bf16, 4 x 256 tokens, ``grad_accum`` 2, AdamW, under
+    its (1, 1) train context: the dry run's FLOPs (meta probes of 1 and 2
+    layers, combined) equal ``FlopCounterMode``'s count of the real step
+    on the card, and its argument bytes the step's params, optimizer
+    state and int32 batch."""
+    import dataclasses
+    from repro_torch.configs import SHAPE_BY_NAME, get_config
+    from repro_torch.distributed import make_context, use_dist
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract_mesh, make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.training import adamw, make_train_step
+    from repro_torch.training.optimizer import leaves
+    cfg = dataclasses.replace(get_config("llama31-8b"), n_layers=2)
+    shape = dataclasses.replace(SHAPE_BY_NAME["train_4k"], seq_len=256,
+                                global_batch=4)
+    rec = dryrun.dry_run(cfg, shape, abstract_mesh((1, 1), ("data",
+                                                            "model")),
+                         grad_accum=2)
+    params = init_params(cfg, seed=0, device=dev)
+    opt = adamw()
+    state = opt.init(params)
+    toks = torch.randint(0, cfg.vocab_size, (4, 256), device=dev,
+                         dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    batch = {"tokens": toks, "labels": toks}
+    held = sum(t.numel() * t.element_size()
+               for tree in (params, state, batch) for _, t in leaves(tree))
+    parts = rec["meta"]["argument_parts"]
+    assert held == parts["params"] + parts["opt_state"] + parts["batch"]
+    step = make_train_step(cfg, opt, grad_accum=2)
+    mesh = make_mesh((1, 1), ("data", "model"), devices=[dev])
+    with use_dist(make_context(cfg, mesh, "train", batch_size=4)):
+        flops = dryrun.count_flops(lambda: step(params, state, batch, 0))
+    assert rec["costs_per_device"]["flops"] == flops > 0

@@ -447,9 +447,18 @@ def test_launcher_trains_on_cpu(capsys):
         assert "steps 3->5" in capsys.readouterr().out
 
 
-def test_launcher_refuses_dry_run(capsys):
-    assert launch_train.main(["--dry-run"]) != 0
-    assert "not ported" in capsys.readouterr().err
+def test_launcher_dry_run_writes_ok_record(monkeypatch, tmp_path, capsys):
+    """``--dry-run`` dry-runs the arch's full-scale train_4k step on the
+    production mesh (meta device, no card) and exits 0 on an ok record."""
+    from repro_torch.launch import dryrun
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", str(tmp_path))
+    assert launch_train.main(["--arch", "granite-3-8b", "--dry-run"]) == 0
+    assert "OK" in capsys.readouterr().out
+    rec = json.loads((tmp_path / "granite-3-8b__train_4k__pod16x16.json")
+                     .read_text())
+    assert rec["status"] == "ok", rec
+    assert rec["chips"] == 256 and rec["memory"]["argument_bytes"] > 0
+    assert rec["costs_per_device"]["flops"] > 0
 
 
 def test_entry_points_need_a_card_by_default():
