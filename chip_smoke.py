@@ -62,7 +62,12 @@ Phases:
      serve it once more in each layout on the model clock, where the
      schedule does not depend on the step times, and hold split to fused:
      the same steps, evictions, recomputed tokens and multi-segment
-     chunks, equal first sampled ids, first logits within tolerance.
+     chunks (at least one: a prefill chunk recomputed a history with
+     gaps), equal first sampled ids, first logits within tolerance.
+     The wall-clock runs of phases 3 and 3b report their multi-segment
+     chunks but do not require one: on the wall clock the schedule, and
+     so which pages are evicted before a session's next turn, follows
+     the step times of the card and host.
   4. Profile a short serving run (``torch.profiler``) in each layout:
      device time by kernel, the share of the kernels each attention call
      launches (the kernel and its merge: ``msa_fused``; ``msa_prefill``
@@ -189,15 +194,31 @@ Phases:
      lies in ``DRYRUN_PEAK_BAND``; the CUDA-event ms of a step beside the
      roofline's bound.  One ``dryrun:`` JSON line a case, after the card
      line.
+  13. The examples (``repro_torch.examples``), through their ``run``
+     functions: (a, after 12 b, on phase 3's Llama-3.1-8B bf16 weights)
+     ``prefix_sharing`` at full width and depth, the example's own
+     workload (10 jobs, 80% behind a 280-token preamble, 320 blocks) with
+     sharing on and then off on the model clock: every request finished,
+     ``msa_fused`` launched L x the engine steps of both arms,
+     copy-on-write forks, fewer prefill tokens computed with sharing, each
+     request's first logits within ``FULL_TOL["bfloat16"]`` of the dense
+     reference, the share of equal first sampled ids between the arms;
+     (b, last) each example at the JAX package's sizes on the float32
+     smoke Llama: ``quickstart`` and ``prefix_sharing`` (their asserts;
+     L x steps launches), ``serve_multiturn --real``, ``serve_online``
+     (its asserts; launches ``attn_dispatches``), ``train_lm``
+     (``CONFIG_100M``, 20 steps into ``build/``, resumed to 30: the resume
+     starts at 20, the loss falls; one more step profiled), and one short
+     run of each simulation (no kernel launch).
 
 Phase 9 prints one ``full_model:`` JSON line a model and dtype, phase 10
 one ``train:`` line a run and one ``train_remat:`` line, phase 11 one
-``sharded_model:`` line a run, phase 12 one ``dryrun:`` line a case
-(each with the card line).  Prints the card line again, the (o, lse)
+``sharded_model:`` line a run, phase 12 one ``dryrun:`` line a case,
+phase 13 one ``example:`` line an example (each with the card line).  Prints the card line again, the (o, lse)
 mode's row and the kernel table (all three kernels) as JSON lines, and,
 last, ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero
 exit).  Each phase is a function; ``main`` runs them all in order
-(phase 12's parts after the phases whose models they reuse).
+(phases 12 and 13's parts after the phases whose models they reuse).
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
 from __future__ import annotations
@@ -1214,6 +1235,21 @@ def _kernel_counts():
             "msa_fused_partial": msa_fused_partial_cuda}
 
 
+def _counted(fn):
+    """``fn()`` with every kernel's launch count set to 0 just before and
+    read just after: (its result, the launches, its wall seconds)."""
+    import torch
+    counters = _kernel_counts()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, {name: c.launches for name, c in counters.items()}, wall
+
+
 def _measured_run(srv, serve):
     """Drive one serving run (``serve()``, over ``srv``) with every
     kernel's launch count set to 0 just before and read just after; count
@@ -1234,11 +1270,7 @@ def _measured_run(srv, serve):
     srv.engine.dispatch = counting_dispatch
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in _kernel_counts().values():
-        fn.launches = 0
-    res = serve()
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in _kernel_counts().items()}
+    res, launches, _ = _counted(serve)
     res["assembly_s"] = assembly
     return res, len(seg_chunks), launches
 
@@ -1329,7 +1361,9 @@ def serve_phase():
         [r.status for r in wl]
     assert res["n_requests"] == len(wl)
     assert res["evictions"] > 0, "the pool never evicted"
-    assert seg_chunks, "no prefill chunk recomputed a multi-segment history"
+    # whether a later turn finds its history evicted with gaps depends on
+    # the wall-clock step times; phase 3b requires a multi-segment chunk
+    # on the model clock, whose schedule does not
     assert res["attn_dispatches_per_step"] == cfg.n_layers
     assert launches == {"msa_fused": cfg.n_layers * steps, "msa_prefill": 0,
                         "msa_decode": 0, "msa_fused_partial": 0}, \
@@ -1401,6 +1435,8 @@ def split_serve_phase(fused):
         runs[mode] = (w_, r_, seg_)
     line = _agreement(runs["fused"], runs["split"], fused["refs"])
     print("split_vs_fused: " + json.dumps(line), flush=True)
+    assert runs["fused"][2] > 0, \
+        ("no prefill chunk recomputed a multi-segment history", line)
     return launches, runs["fused"]
 
 
@@ -2612,25 +2648,26 @@ def sharded_decode_run(card, models, shape, contexts):
         generator=torch.Generator(device="cuda").manual_seed(5),
         device="cuda")
     mesh = _one_card_mesh(shape)
-    counters = _kernel_counts()
-    for fn in counters.values():
-        fn.launches = 0
-    out = {}
-    for dtype, (cfg, params) in models.items():
-        ctx = make_context(cfg, mesh, "decode", batch_size=B)
-        state = _random_decode_state(cfg, contexts, S, dtype)
-        out[dtype] = _decode_trajectory(cfg, params, state, tokens)
-        del state
-        state = _random_decode_state(cfg, contexts, S, dtype)
-        sharded = shard_decode_state(state, ctx)
-        assert all(p.untyped_storage().data_ptr()
-                   == state["k"].untyped_storage().data_ptr()
-                   for p in sharded["k"].pieces)             # views
-        out[dtype + "_sharded"] = _decode_trajectory(cfg, params, sharded,
-                                                     tokens, ctx)
-        del state, sharded
-        torch.cuda.empty_cache()
-    launches = {name: fn.launches for name, fn in counters.items()}
+
+    def trajectories():
+        out = {}
+        for dtype, (cfg, params) in models.items():
+            ctx = make_context(cfg, mesh, "decode", batch_size=B)
+            state = _random_decode_state(cfg, contexts, S, dtype)
+            out[dtype] = _decode_trajectory(cfg, params, state, tokens)
+            del state
+            state = _random_decode_state(cfg, contexts, S, dtype)
+            sharded = shard_decode_state(state, ctx)
+            assert all(p.untyped_storage().data_ptr()
+                       == state["k"].untyped_storage().data_ptr()
+                       for p in sharded["k"].pieces)         # views
+            out[dtype + "_sharded"] = _decode_trajectory(
+                cfg, params, sharded, tokens, ctx)
+            del state, sharded
+            torch.cuda.empty_cache()
+        return out, ctx
+
+    (out, ctx), launches, _ = _counted(trajectories)
 
     def worst(a, b):
         return max(_trel(x, y) for x, y in zip(out[a][0], out[b][0]))
@@ -2823,18 +2860,12 @@ def launcher_phase(card):
     from repro_torch.launch.serve import main, parse_args, serve
     from repro_torch.models import init_params
     from repro_torch.serving import RequestState, reference_logits
-    counters = _kernel_counts()
     lines = []
     for argv in (["--mode", "real"], ["--mode", "online"],
                  ["--mode", "real", "--devices", "2", "--device", "cuda:0"],
                  ["--mode", "sim"]):
-        for fn in counters.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        srv, wl, res = serve(parse_args(argv))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in counters.items()}
+        (srv, wl, res), launches, wall = _counted(
+            lambda: serve(parse_args(argv)))
         line = {"run": "launcher", "card": card, "argv": argv,
                 "requests": res["n_requests"], "failed": res["n_failed"],
                 "steps": res["steps"], "wall_s": wall,
@@ -2861,7 +2892,7 @@ def launcher_phase(card):
                 n = srv.engine.n_shards
                 want = ({"msa_fused_partial": n * L * steps} if n > 1
                         else {"msa_fused": L * steps})
-            want = {k: want.get(k, 0) for k in counters}
+            want = {k: want.get(k, 0) for k in launches}
             assert launches == want and steps > 0, (launches, want)
         print("sharded_model: " + json.dumps(line), flush=True)
         lines.append(line)
@@ -3142,6 +3173,196 @@ def profile_phase(make_server, make_workload, mode="fused", n_requests=2):
             flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the examples (repro_torch.examples) on the card
+# ---------------------------------------------------------------------------
+
+# phase 13 (b)'s simulations: their parity with the reference is held on
+# the CPU (tests/test_torch_examples_sim.py); here one short run each
+SIM_JOBS, SIM_SESSIONS = 3, 4
+TRAIN_STEPS, TRAIN_RESUME_STEPS = 20, 30
+
+
+def _fused_launches(n):
+    return {name: n if name == "msa_fused" else 0 for name in _kernel_counts()}
+
+
+def _all_finished(requests):
+    return all(r.status == "finished" for r in requests)
+
+
+def prefix_sharing_full_phase(card, fused):
+    """Phase 13 (a): ``repro_torch.examples.prefix_sharing.run`` on phase
+    3's Llama-3.1-8B bf16 weights (full width and depth, no new draw): the
+    example's own workload (10 jobs, 80% behind a 280-token preamble) with
+    sharing on and then off, 320 blocks, on the model clock.  Every
+    request finishes; ``msa_fused`` launches L x the engine steps of both
+    arms; the sharing arm forks copy-on-write and computes fewer prefill
+    tokens; every request's first logits (both arms) within
+    ``FULL_TOL["bfloat16"]`` of the dense reference; the share of equal
+    first sampled ids between the arms."""
+    from repro_torch.examples import prefix_sharing
+    from repro_torch.serving import reference_logits
+    cfg, params = fused["cfg"], fused["params"]
+    out, launches, wall = _counted(lambda: prefix_sharing.run(
+        cfg, params, clock="model", device="cuda"))
+    shared, base = out["shared"], out["baseline"]
+    wl, base_wl = out["requests"], out["baseline_requests"]
+    steps = shared["engine_dispatches"] + base["engine_dispatches"]
+    base_worst = max(
+        _rel(r.first_logits, reference_logits(cfg, params, r.prompt_tokens))
+        for r in base_wl)
+    same = [a.sampled_ids[:1] == b.sampled_ids[:1]
+            for a, b in zip(wl, base_wl)]
+    line = {"run": "prefix_sharing_full", "card": card, "model": cfg.name,
+            "layers": cfg.n_layers, "dtype": cfg.dtype, "requests": len(wl),
+            "steps_shared": shared["steps"], "steps_baseline": base["steps"],
+            "prefill_compute_tokens": shared["prefill_compute_tokens"],
+            "baseline_prefill_compute_tokens":
+                base["prefill_compute_tokens"],
+            "prefix_matched_tokens": shared["prefix_matched_tokens"],
+            "cow_forks": shared["cow_forks"],
+            "block_hit_rate": shared["block_hit_rate"],
+            "kernel_launches": launches, "worst_rel_err": out["worst_rel_err"],
+            "baseline_worst_rel_err": base_worst,
+            "tolerance": FULL_TOL["bfloat16"],
+            "equal_first_sampled_ids": sum(same) / len(same), "wall_s": wall}
+    print("example: " + json.dumps(line), flush=True)
+    assert _all_finished(wl) and _all_finished(base_wl), line
+    assert launches == _fused_launches(cfg.n_layers * steps), line
+    assert shared["attn_dispatches"] + base["attn_dispatches"] == \
+        cfg.n_layers * steps, line
+    assert shared["cow_forks"] > 0, line
+    assert shared["prefill_compute_tokens"] < \
+        base["prefill_compute_tokens"], line
+    assert out["worst_rel_err"] < FULL_TOL["bfloat16"], line
+    assert base_worst < FULL_TOL["bfloat16"], line
+    return line
+
+
+def examples_phase(card):
+    """Phase 13 (b): the examples in process on the card at the JAX
+    package's sizes (the float32 smoke Llama, weights from seed 0):
+    ``quickstart`` (its losslessness assert; launches L x steps),
+    ``prefix_sharing`` (the same, over both arms; every request of both
+    finishes), ``serve_multiturn --real`` (its worst first-logit
+    |difference| under 2e-3 x the largest |reference logit|, the CPU
+    test's bar), ``serve_online`` (its asserts: every block reference
+    released, zero resume stalls; launches ``attn_dispatches``),
+    ``train_lm`` (``CONFIG_100M``, 20 steps into a directory under
+    ``build/``, then resumed to 30: the resume starts at 20, the loss
+    falls, no kernel launch; then one more step under the profiler: the
+    device's busy share) and one short run of each simulation (no kernel
+    launch).  One ``example:`` JSON line each."""
+    import shutil
+    import torch
+    from repro_torch.examples import (agentic_continuum, prefix_sharing,
+                                      quickstart, serve_multiturn,
+                                      serve_online, train_lm)
+    from repro_torch.examples._smoke import LOSSLESS_REL_TOL, smoke_model
+    from repro_torch.serving import reference_logits
+    cfg, params, _ = smoke_model(None, None, "cuda")     # seed 0's draw
+    L = cfg.n_layers
+    lines = []
+
+    def record(name, launches, wall, want, **kw):
+        line = {"run": "example", "card": card, "example": name,
+                "wall_s": wall, "kernel_launches": launches, **kw}
+        print("example: " + json.dumps(line), flush=True)
+        assert launches == want, (line, want)
+        lines.append(line)
+        return line
+
+    out, launches, wall = _counted(lambda: quickstart.run(device="cuda"))
+    res = out["summary"]
+    record("quickstart", launches, wall,
+           _fused_launches(L * res["engine_dispatches"]),
+           steps=res["steps"], evictions=res["evictions"],
+           ttft_mean_s=res["ttft_mean"], tpot_mean_s=res["tpot_mean"],
+           block_hit_rate=res["block_hit_rate"],
+           worst_rel_err=out["worst_rel_err"])
+    assert _all_finished(out["requests"])
+    assert out["worst_rel_err"] < LOSSLESS_REL_TOL
+
+    out, launches, wall = _counted(lambda: prefix_sharing.run(device="cuda"))
+    res, base = out["shared"], out["baseline"]
+    record("prefix_sharing", launches, wall, _fused_launches(
+        L * (res["engine_dispatches"] + base["engine_dispatches"])),
+        prefill_compute_tokens=res["prefill_compute_tokens"],
+        baseline_prefill_compute_tokens=base["prefill_compute_tokens"],
+        prefix_matched_tokens=res["prefix_matched_tokens"],
+        cow_forks=res["cow_forks"], worst_rel_err=out["worst_rel_err"])
+    assert _all_finished(out["requests"]) and res["cow_forks"] > 0
+    assert _all_finished(out["baseline_requests"])
+    assert out["worst_rel_err"] < LOSSLESS_REL_TOL
+
+    out, launches, wall = _counted(
+        lambda: serve_multiturn.run_real(cfg, params, device="cuda"))
+    res = out["summary"]
+    scale = max(float(np.max(np.abs(
+        reference_logits(cfg, params, r.prompt_tokens))))
+        for r in out["requests"])
+    record("serve_multiturn --real", launches, wall,
+           _fused_launches(L * res["engine_dispatches"]),
+           steps=res["steps"], evictions=res["evictions"],
+           ttft_mean_s=res["ttft_mean"],
+           block_hit_rate=res["block_hit_rate"],
+           worst_abs_err=out["worst_abs_err"],
+           tolerance=LOSSLESS_REL_TOL * scale)
+    assert _all_finished(out["requests"])
+    assert out["worst_abs_err"] < LOSSLESS_REL_TOL * scale
+    del params
+
+    out, launches, wall = _counted(lambda: serve_online.run(device="cuda"))
+    res = out["summary"]
+    record("serve_online", launches, wall,
+           _fused_launches(res["attn_dispatches"]), steps=res["steps"],
+           sessions=[s[:3] for s in out["sessions"]],
+           streamed=out["streamed"],
+           prefetch_swap_ins=res["prefetch_swap_ins"],
+           prefetch_hits=res["prefetch_hits"],
+           resume_swap_stalls=res["resume_swap_stalls"],
+           job_latency_mean_s=res["agent_job_latency_mean"])
+    assert out["released"] and res["resume_swap_stalls"] == 0
+    assert out["cancelled_after"] == serve_online.CANCEL_AFTER
+    assert res["attn_dispatches"] > 0
+
+    ckpt = Path(__file__).resolve().parent / "build" / "examples_train_lm"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    runs = []
+    for steps in (TRAIN_STEPS, TRAIN_RESUME_STEPS):
+        out, launches, wall = _counted(lambda: train_lm.run(
+            steps=steps, ckpt_dir=str(ckpt), device="cuda"))
+        runs.append(record(
+            "train_lm", launches, wall, _fused_launches(0),
+            params=train_lm.CONFIG_100M.param_count(), start=out["start"],
+            step=out["step"], first_loss=out["losses"][0],
+            last_loss=out["losses"][-1],
+            step_s_median=statistics.median(
+                h["step_time"] for h in out["history"] if "step_time" in h)))
+        assert out["step"] == steps and np.all(np.isfinite(out["losses"]))
+    assert runs[1]["start"] == TRAIN_STEPS, runs
+    assert runs[1]["last_loss"] < runs[0]["first_loss"], runs
+    shutil.rmtree(ckpt, ignore_errors=True)
+    _profile_train_step(card, train_lm.CONFIG_100M.name, out["trainer"])
+    del out
+
+    out, launches, wall = _counted(
+        lambda: agentic_continuum.run(n_jobs=SIM_JOBS))
+    record("agentic_continuum", launches, wall, _fused_launches(0),
+           n_jobs=SIM_JOBS, job_latency_mean_s={
+               k: r["job_latency_mean"] for k, r in out.items()})
+    assert all(r["n_requests"] > 0 for r in out.values())
+    out, launches, wall = _counted(
+        lambda: serve_multiturn.run_sim(n_sessions=SIM_SESSIONS))
+    record("serve_multiturn", launches, wall, _fused_launches(0),
+           n_sessions=SIM_SESSIONS,
+           evictions={k: r["evictions"] for k, r in out.items()})
+    assert all(r["n_requests"] > 0 for r in out.values())
+    torch.cuda.empty_cache()
+    return lines
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "src" / "repro_torch").is_dir():
@@ -3222,6 +3443,8 @@ def main() -> int:
     done("11a")
     dryrun_decode_phase(card, fused["cfg"], fused["params"], decode_lines)
     done("12b")
+    prefix_sharing_full_phase(card, fused)
+    done("13a")
     # Grok-1's ~43 GB of weights must not meet Llama's 16 GB: drop every
     # reference to Llama's weights and pools (the servers hold cycles)
     del fused
@@ -3263,6 +3486,10 @@ def main() -> int:
     kimi_phase(card)
     launcher_phase(card)
     done("11")
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples_phase(card)
+    done("13b")
 
     fused_main = fused_results[("main", "bfloat16")]
     src = "src/repro_torch/kernels/msa/csrc/"

@@ -976,7 +976,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for root, _, names in os.walk(os.path.join(REPO, "src", "repro_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 30
+    assert any(os.path.basename(os.path.dirname(f)) == "examples"
+               for f in files)
     for path in files:
         bad = {m for m in _import_roots(path)
-               if m in ("jax", "jaxlib", "repro")}
+               if m in ("jax", "jaxlib", "repro", "benchmarks")}
         assert not bad, (path, bad)
