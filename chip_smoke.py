@@ -68,7 +68,8 @@ Phases:
      chunks but do not require one: on the wall clock the schedule, and
      so which pages are evicted before a session's next turn, follows
      the step times of the card and host.
-  4. Profile a short serving run (``torch.profiler``) in each layout:
+  4. Profile a short serving run (``torch.profiler``, one request of
+     phase 3's workload) in each layout:
      device time by kernel, the share of the kernels each attention call
      launches (the kernel and its merge: ``msa_fused``; ``msa_prefill``
      and ``msa_decode``), their device ms a call, the device's idle share,
@@ -117,7 +118,7 @@ Phases:
      schedule and first sampled ids, the share of equal ids, first logits
      within tolerance of it and of the dense reference, one (o, lse)
      launch a shard a layer a step, each shard's weight bytes; then over
-     4 shards on the first 3 sessions; a profile of one request at N = 2.
+     4 shards on the first 2 sessions; a profile of one request at N = 2.
   9. (after 7, Grok-1 freed) The full model (``repro_torch.models``:
      ``forward``, ``init_decode_state``, ``prep_cross_attention``,
      ``decode_step``; plain PyTorch, no kernel of its own) at full width
@@ -210,15 +211,34 @@ Phases:
      (``CONFIG_100M``, 20 steps into ``build/``, resumed to 30: the resume
      starts at 20, the loss falls; one more step profiled), and one short
      run of each simulation (no kernel launch).
+  14. (after 13 a, on phase 3's Llama-3.1-8B bf16 weights) The
+     recomputation cost model fitted on the card: 128 page-aligned
+     two-segment instances (l1, q1, l2, q2) built by hand through the
+     block manager (l1 0-2048, q1 16-384, l2 0-1024, q2 16-256, a chunk of
+     q1 + q2 <= 512, contexts to ~3.7k; an engine of its own, one chunk
+     of 512 over 256 pages).  The three deepest are first made resident
+     (every position computed, the q1 and q2 segments then evicted to
+     fresh pages) and their two-segment step's first logits held to the
+     dense reference (< 5e-2).  Each instance is dispatched in a warm-up
+     round (layer 0's ``msa_fused`` inputs captured, the kernel timed
+     alone on them) and three timed rounds (CUDA events around
+     ``Engine.dispatch`` and a sync; an instance's median); both times
+     fitted to Eq. 6 with ``core.fit``; ``msa_fused`` launches L x the
+     dispatches; the pinned host->device and device->host copy rates (and
+     the pageable host->device one) at one block's K and V payload.
 
 Phase 9 prints one ``full_model:`` JSON line a model and dtype, phase 10
 one ``train:`` line a run and one ``train_remat:`` line, phase 11 one
 ``sharded_model:`` line a run, phase 12 one ``dryrun:`` line a case,
-phase 13 one ``example:`` line an example (each with the card line).  Prints the card line again, the (o, lse)
+phase 13 one ``example:`` line an example, phase 14 one ``cost_fit:``
+line a fit (the step, the kernel: k1..k6, β, R², Eq. 7's slope beside
+the analytic H100 model's and its median error against the steps) and a
+``cost_model:`` line (checks, launches, link rates, every instance's two
+times) (each with the card line).  Prints the card line again, the (o, lse)
 mode's row and the kernel table (all three kernels) as JSON lines, and,
 last, ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero
 exit).  Each phase is a function; ``main`` runs them all in order
-(phases 12 and 13's parts after the phases whose models they reuse).
+(phases 12, 13 and 14 after the phases whose models they reuse).
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
 from __future__ import annotations
@@ -1298,16 +1318,15 @@ def _rel(a, b):
     return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
 
 
-def serve_phase():
+def llama_weights():
+    """Llama-3.1-8B at full width and depth (32 layers, d 4096, bf16),
+    random weights from seed 0 on the card, wq/wk at fan-in: phase 3's
+    weights.  Returns (config, parameters)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
-    from repro_torch.serving import (AsymCacheServer, EngineConfig,
-                                     ServerConfig, WorkloadConfig,
-                                     multi_turn_workload, reference_logits)
-    cfg = get_config("llama31-8b")             # 32 layers, d 4096, bf16
+    cfg = get_config("llama31-8b")
     t0 = time.perf_counter()
-    base_bytes = torch.cuda.memory_allocated()
     params = init_params(cfg, seed=0)          # on the card
     # init_params draws wq/wk at 1/sqrt(H) like the reference's init; at
     # head_dim 128 that makes q and k of std ~11 and attention scores of
@@ -1323,6 +1342,16 @@ def serve_phase():
         t.numel() for k, t in params.items() if k != "blocks")
     print(f"serve: {n_params} random {cfg.dtype} parameters in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return cfg, params
+
+
+def serve_phase():
+    import torch
+    from repro_torch.serving import (AsymCacheServer, EngineConfig,
+                                     ServerConfig, WorkloadConfig,
+                                     multi_turn_workload, reference_logits)
+    base_bytes = torch.cuda.memory_allocated()
+    cfg, params = llama_weights()
 
     def make_workload(**kw):
         return multi_turn_workload(WorkloadConfig(
@@ -1479,9 +1508,10 @@ def _agreement(base, other, refs):
 # ---------------------------------------------------------------------------
 
 # N = 4 serves the first SHARD_CUT_SESSIONS of the workload's four
-# sessions (enough to overflow the pool): its host runs four shards' ops
-# a layer, about four times a single-device step's
-SHARD_CUT_SESSIONS = 3
+# sessions: its host runs four shards' ops a layer, about four times a
+# single-device step's.  The cut evicts nothing; N = 2 serves the whole
+# workload, evictions and the multi-segment chunk included
+SHARD_CUT_SESSIONS = 2
 
 
 def _tensor_bytes(tree, spec=None, n=1) -> int:
@@ -3363,6 +3393,246 @@ def examples_phase(card):
     return lines
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the recomputation cost model (Eq. 6) fitted on the card
+# ---------------------------------------------------------------------------
+
+# the phase's engine: one prefill chunk of up to 512 tokens over contexts
+# up to 4096 tokens (256 pages), a pool that holds one such context and
+# the fresh pages of a checked instance's recompute
+COST_ENGINE = dict(num_pages=320, page_size=16, max_prefills=1,
+                   max_chunk=512, max_decodes=8, max_blocks_per_seq=256)
+COST_INSTANCES = 128
+COST_CHECKED = 3        # instances held to the dense reference first
+COST_RUNS = 3           # timed runs an instance, after one warm-up
+COST_SEED = 14
+# (lo, hi) of l1, q1, l2, q2 in tokens; the chunk q1 + q2 at most 512
+COST_RANGES = ((0, 2048), (16, 384), (0, 1024), (16, 256))
+# a page filled with it reads as scores far off the data's, so a read of
+# a fresh page that the plan should have written shows in the logits
+STALE_PAGE_VALUE = 30.0
+
+
+def cost_instances(n, seed=COST_SEED, page=16):
+    """``n`` page-aligned two-segment instances ``(l1, q1, l2, q2)``
+    drawn uniformly from ``COST_RANGES``: a resident prefix of l1 tokens,
+    q1 recomputed (the evicted middle), a resident l2 and q2 new tokens,
+    one chunk of q1 + q2 <= ``max_chunk`` tokens."""
+    rng = np.random.default_rng(seed)
+    cap = COST_ENGINE["max_chunk"]
+    out = []
+    while len(out) < n:
+        inst = tuple(page * int(rng.integers(lo // page, hi // page + 1))
+                     for lo, hi in COST_RANGES)
+        if inst[1] + inst[3] <= cap:
+            out.append(inst)
+    return out
+
+
+def two_segment_plan(srv, inst, rid, rng, now=0.0):
+    """One instance ``(l1, q1, l2, q2)`` built by hand through the
+    server's block manager: a request of l1 + q1 + l2 + q2 random prompt
+    tokens with a pool page allocated for each of its blocks, and the plan
+    of one prefill chunk that recomputes the q1 tokens after the resident
+    l1 and computes the q2 new tokens after the resident l2 (two
+    segments).  Returns (request, plan)."""
+    from repro_torch.serving import PrefillChunk, Request, StepPlan
+    l1, q1, l2, q2 = inst
+    bs = srv.scfg.block_size
+    n = l1 + q1 + l2 + q2
+    assert all(x % bs == 0 for x in inst) and q1 > 0 and q2 > 0, inst
+    req = Request(rid=rid, session_id=rid,
+                  prompt_tokens=rng.integers(0, srv.cfg.vocab_size,
+                                             n).tolist(),
+                  output_script=[0], arrival=now)
+    req.block_slots = srv.bm.allocate(n // bs, now)
+    assert req.block_slots is not None, ("pool too small", inst)
+    pos = np.r_[l1:l1 + q1, l1 + q1 + l2:n].astype(np.int32)
+    return req, StepPlan(prefills=[PrefillChunk(req, pos, True)])
+
+
+def make_resident(srv, req, inst, now=0.0):
+    """Compute every position of ``req``'s prompt into its pages (chunks
+    of the engine's ``max_chunk``), then evict the q1 and q2 segments:
+    their blocks get fresh pages from the block manager, filled with
+    ``STALE_PAGE_VALUE``, and their old pages are freed.  The instance's
+    two-segment plan then recomputes into the fresh pages over the
+    resident l1 and l2."""
+    import torch
+    from repro_torch.serving import PrefillChunk, StepPlan
+    eng, bs = srv.engine, srv.scfg.block_size
+    n = req.prompt_len
+    for s in range(0, n, eng.ecfg.max_chunk):
+        pos = np.arange(s, min(s + eng.ecfg.max_chunk, n), dtype=np.int32)
+        eng.execute(StepPlan(prefills=[
+            PrefillChunk(req, pos, bool(pos[-1] == n - 1))]))
+    l1, q1, l2, _ = inst
+    blocks = [*range(l1 // bs, (l1 + q1) // bs),
+              *range((l1 + q1 + l2) // bs, n // bs)]
+    fresh = srv.bm.allocate(len(blocks), now)
+    old = [req.block_slots[b] for b in blocks]
+    for b, slot in zip(blocks, fresh):
+        req.block_slots[b] = slot
+    idx = torch.tensor(fresh, device=eng.k_pools.device)
+    eng.k_pools[:, idx] = STALE_PAGE_VALUE
+    eng.v_pools[:, idx] = STALE_PAGE_VALUE
+    srv.bm.release(old, now)
+    req.reset_assembly_caches()
+
+
+def _eq7_slope(cm):
+    """Eq. 7's marginal block cost over its constant term: 2·k5 /
+    (k2 − k3 + k5), a token's cost growth with its position."""
+    k1, k2, k3, k4, k5, k6 = cm.k
+    return 2.0 * k5 / (k2 - k3 + k5)
+
+
+def link_rates(cfg):
+    """The card's copy rates at one swap payload's size (one block's K
+    and V halves, all layers, in the pool's dtype): pinned host to device
+    and device to host (CUDA events, median of 20, the device alone), and
+    pageable host to device (the engine ships its payloads from numpy
+    buffers), in bytes a second."""
+    import torch
+    from repro_torch import torch_dtype
+    nbytes = (2 * cfg.n_layers * COST_ENGINE["page_size"] * cfg.n_kv_heads
+              * cfg.head_dim * torch_dtype(cfg.dtype).itemsize)
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    pageable = torch.empty(nbytes, dtype=torch.uint8)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    h2d = _median_ms(lambda: dev.copy_(pinned, non_blocking=True))
+    d2h = _median_ms(lambda: pinned.copy_(dev, non_blocking=True))
+    paged = _median_ms(lambda: dev.copy_(pageable), device_only=False)
+    return {"payload_bytes": nbytes,
+            "h2d_pinned_bytes_per_s": nbytes / (h2d / 1e3),
+            "d2h_pinned_bytes_per_s": nbytes / (d2h / 1e3),
+            "h2d_pageable_bytes_per_s": nbytes / (paged / 1e3)}
+
+
+def cost_model_phase(card, cfg, params):
+    """Phase 14 (after 13 a, on phase 3's Llama-3.1-8B bf16 weights): Eq.
+    6 fitted on the card.  The ``COST_CHECKED`` deepest instances first
+    made resident (every position computed, then the q1 and q2 segments
+    evicted to fresh pages) and held to the dense reference (first logits
+    within ``LOGIT_REL_TOL``); then each of ``COST_INSTANCES`` instances
+    (``cost_instances``) through ``Engine.dispatch``: a warm-up round
+    that captures each one's layer-0 ``msa_fused`` inputs and times the
+    kernel alone on them (median of ``COST_RUNS``, the device alone:
+    MSA's positional cost), then ``COST_RUNS`` rounds that time each
+    step (CUDA events around the dispatch and a sync: the whole step, as
+    the server's model prices it; the median of an instance's rounds).
+    Both fitted with ``core.fit``; one ``cost_fit:`` line each with the
+    constants, R², Eq. 7's slope and the analytic H100 model's slope and
+    median relative error against the measured steps; then the link
+    rates (``link_rates``).  ``msa_fused`` launches L x the dispatches
+    (its timing launches are not counted)."""
+    import torch
+    import repro_torch.serving.engine as engine_mod
+    from repro_torch.core import H100, analytic_cost_model, fit
+    from repro_torch.serving import (AsymCacheServer, EngineConfig,
+                                     ServerConfig, reference_logits)
+    t0 = time.perf_counter()
+    ecfg = EngineConfig(**COST_ENGINE)
+    srv = AsymCacheServer(cfg, params, ServerConfig(
+        num_blocks=ecfg.num_pages, block_size=ecfg.page_size), ecfg=ecfg)
+    eng, fused = srv.engine, engine_mod.msa_fused
+    counters = _kernel_counts()
+    launches = dict.fromkeys(counters, 0)
+    dispatch = eng.dispatch
+
+    def counted_dispatch(plan):
+        before = {n: c.launches for n, c in counters.items()}
+        handle = dispatch(plan)
+        for n, c in counters.items():
+            launches[n] += c.launches - before[n]
+        return handle
+
+    eng.dispatch = counted_dispatch
+    rng = np.random.default_rng(COST_SEED)
+    insts = cost_instances(COST_INSTANCES)
+    L = cfg.n_layers
+
+    worst = 0.0
+    for i, inst in enumerate(sorted(insts, key=sum)[-COST_CHECKED:]):
+        req, plan = two_segment_plan(srv, inst, i, rng)
+        make_resident(srv, req, inst)
+        got = eng.execute(plan).prefill_logits_np()[0]
+        ref = reference_logits(cfg, params, req.prompt_tokens)
+        assert got.shape == ref.shape and np.all(np.isfinite(got)), inst
+        worst = max(worst, _rel(got, ref))
+        srv.bm.release(req.block_slots, 0.0)
+    checked_s = time.perf_counter() - t0
+
+    # round 0 warms each instance up (and times its kernel on layer 0's
+    # captured inputs); rounds 1..COST_RUNS time the steps, every
+    # instance once a round, so that the host's drift over the phase
+    # (its step times wander by ~10 ms over tens of instances) falls on
+    # all instances alike
+    runs = [[] for _ in insts]
+    kernel_ms = []
+    for rnd in range(COST_RUNS + 1):
+        for i, inst in enumerate(insts):
+            req, plan = two_segment_plan(srv, inst, COST_CHECKED + i, rng)
+            torch.cuda.synchronize()
+            if rnd == 0:
+                captured = []
+
+                def capture(*a, **kw):
+                    if not captured:          # layer 0's call
+                        captured.append((a, kw))
+                    return fused(*a, **kw)
+
+                engine_mod.msa_fused = capture
+                try:
+                    eng.dispatch(plan)
+                finally:
+                    engine_mod.msa_fused = fused
+                a, kw = captured[0]
+                kernel_ms.append(_median_ms(lambda: fused(*a, **kw),
+                                            iters=COST_RUNS, warmup=1))
+            else:
+                runs[i].append(_events_ms(lambda: eng.dispatch(plan))[1])
+            srv.bm.release(req.block_slots, 0.0)
+    step_ms = [statistics.median(r) for r in runs]
+    dispatches = eng.steps_executed
+    eng.dispatch = dispatch
+
+    analytic = analytic_cost_model(cfg, H100)
+    analytic_err = statistics.median(
+        abs(analytic.latency(*inst) - t / 1e3) / (t / 1e3)
+        for inst, t in zip(insts, step_ms))
+    for what, ms in (("step", step_ms), ("kernel", kernel_ms)):
+        cm = fit(insts, [t / 1e3 for t in ms])
+        line = {"fit": what, "card": card, "model": cfg.name,
+                "layers": L, "dtype": cfg.dtype, "instances": len(insts),
+                "runs": COST_RUNS,
+                "k": list(cm.k), "beta_s": cm.beta, "r2": cm.r2,
+                "eq7_slope_per_token": _eq7_slope(cm),
+                "analytic_h100_slope_per_token": _eq7_slope(analytic),
+                "analytic_h100_median_rel_err_vs_step": analytic_err,
+                "ms_min": min(ms), "ms_median": statistics.median(ms),
+                "ms_max": max(ms)}
+        print("cost_fit: " + json.dumps(line), flush=True)
+        assert all(math.isfinite(v) for v in
+                   (*cm.k, cm.beta, cm.r2, line["eq7_slope_per_token"])), \
+            line
+    rates = link_rates(cfg)
+    line = {"run": "cost_model", "card": card, "model": cfg.name,
+            "instances": len(insts), "checked": COST_CHECKED,
+            "checked_worst_rel_err": worst, "tolerance": LOGIT_REL_TOL,
+            "dispatches": dispatches, "kernel_launches": launches,
+            "link": rates, "checked_s": checked_s,
+            "phase_s": time.perf_counter() - t0,
+            "instances_ms": [[*inst, s, k] for inst, s, k in
+                             zip(insts, step_ms, kernel_ms)]}
+    print("cost_model: " + json.dumps(line), flush=True)
+    assert len(insts) >= 128 and len(step_ms) == len(kernel_ms) == len(insts)
+    assert worst < LOGIT_REL_TOL, line
+    assert launches == _fused_launches(L * dispatches), (launches,
+                                                         dispatches)
+    assert all(v > 0 and math.isfinite(v) for v in rates.values()), rates
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "src" / "repro_torch").is_dir():
@@ -3429,7 +3699,8 @@ def main() -> int:
     split_launches, fused_model = split_serve_phase(fused)
     done("3b")
     for mode in ("fused", "split"):
-        profile_phase(fused["make_server"], fused["make_workload"], mode)
+        profile_phase(fused["make_server"], fused["make_workload"], mode,
+                      n_requests=1)
     done("4")
     online_launches = online_phase(fused)
     single_plan_phase(fused)
@@ -3445,6 +3716,8 @@ def main() -> int:
     done("12b")
     prefix_sharing_full_phase(card, fused)
     done("13a")
+    cost_model_phase(card, fused["cfg"], fused["params"])
+    done("14")
     # Grok-1's ~43 GB of weights must not meet Llama's 16 GB: drop every
     # reference to Llama's weights and pools (the servers hold cycles)
     del fused

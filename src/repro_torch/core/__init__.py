@@ -11,6 +11,7 @@ from repro_torch.core.block_manager import (
 from repro_torch.core.cost_model import (
     H20,
     H100,
+    H100_HOST_LINK_BW,
     TPU_V5E,
     CostModel,
     Hardware,
@@ -56,7 +57,8 @@ from repro_torch.core.treap import Treap
 __all__ = [
     "Block", "BlockManager", "MatchResult", "chain_hash", "hash_seed",
     "PrefixMatch", "PrefixTrie",
-    "CostModel", "Hardware", "H20", "H100", "TPU_V5E", "analytic_cost_model",
+    "CostModel", "Hardware", "H20", "H100", "H100_HOST_LINK_BW", "TPU_V5E",
+    "analytic_cost_model",
     "fit", "mixed_window_cost_model",
     "POLICIES", "AsymCacheEvictor", "AsymCacheLinearEvictor",
     "EvictableMeta", "EvictionPolicy", "LRUEvictor", "MaxScoreEvictor",

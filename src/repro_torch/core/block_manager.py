@@ -43,7 +43,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.core.cost_model import CostModel
+from repro_torch.core.cost_model import H100_HOST_LINK_BW, CostModel
 from repro_torch.core.evictor import EvictableMeta, EvictionPolicy
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.freq import EwmaCounter, FreqParams
@@ -118,7 +118,7 @@ class BlockManager:
                  offload: Optional[OffloadConfig] = None,
                  block_bytes: Optional[Tuple[int, int]] = None,
                  payload_half_bytes: Optional[Tuple[int, int]] = None,
-                 pcie_bw: float = 1.2e10,
+                 pcie_bw: float = H100_HOST_LINK_BW,
                  faults: Optional[FaultPlan] = None,
                  store: Optional[PrefixStore] = None):
         self.num_blocks = num_blocks

@@ -160,12 +160,22 @@ TPU_V5E = Hardware()
 H20 = Hardware(name="h20", flops=148e12, hbm_bw=4.0e12, mfu=0.5)
 # the port's card: NVIDIA's published rates for the H100 80GB HBM3 (SXM,
 # 700 W): 989 TFLOP/s dense bf16, 3.35 TB/s HBM, 450 GB/s of NVLink each
-# way (ici_bw: the link rate of the sharded paths' collectives)
+# way (ici_bw: the link rate of the sharded paths' collectives).
+# kernel_launch is measured: β of Eq. 6 fitted to 128 whole two-segment
+# fused steps of Llama-3.1-8B (chip_smoke.py phase 14; "NVIDIA H100 80GB
+# HBM3, 700.00 W").  It is the eager host's cost a dispatch, which hides
+# the device's work: the fit's R² is 0.02-0.14 (the step does not follow
+# the chunk's shape) and β follows the host's speed (52-74 ms on four
+# hosts).  Fit it again once a step runs as a CUDA graph.
 H100 = Hardware(name="h100-sxm", flops=989e12, hbm_bw=3.35e12,
-                ici_bw=450e9, mfu=0.5)
+                ici_bw=450e9, mfu=0.5, kernel_launch=52.03e-3)
+# pinned host -> device copy rate of one swap payload (one Llama-3.1-8B
+# block's K and V halves, 2 MiB), measured (chip_smoke.py phase 14;
+# "NVIDIA H100 80GB HBM3, 700.00 W"); device -> host measured 45.0 GB/s
+H100_HOST_LINK_BW = 42.39e9
 
 
-def analytic_cost_model(cfg: ModelConfig, hw: Hardware = TPU_V5E,
+def analytic_cost_model(cfg: ModelConfig, hw: Hardware = H100,
                         n_chips: int = 1) -> CostModel:
     """Derive Eq.-6 constants from model FLOPs.
 
@@ -196,7 +206,7 @@ def analytic_cost_model(cfg: ModelConfig, hw: Hardware = TPU_V5E,
                      eff_window=eff_window)
 
 
-def mixed_window_cost_model(cfg: ModelConfig, hw: Hardware = TPU_V5E,
+def mixed_window_cost_model(cfg: ModelConfig, hw: Hardware = H100,
                             n_chips: int = 1) -> CostModel:
     """gemma3/hymba: blend local (windowed) and global layers into one
     effective quadratic coefficient; eff_window stays ∞ but k5 reflects

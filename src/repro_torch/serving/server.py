@@ -38,6 +38,8 @@ from repro_torch.core import (
     CostModel,
     FaultPlan,
     FreqParams,
+    H100,
+    H100_HOST_LINK_BW,
     InjectedFault,
     LifespanTracker,
     OffloadConfig,
@@ -170,7 +172,9 @@ class ServerConfig:
     # hierarchical KV storage (paper §7): evicted blocks spill to a host
     # tier of this many blocks (0 = off); swap-in replaces recomputation
     host_blocks: int = 0
-    pcie_bw: float = 1.2e10             # bytes/s host<->device for swaps
+    # bytes/s host<->device for swaps: the card's pinned host -> device
+    # rate (core.cost_model.H100_HOST_LINK_BW, measured)
+    pcie_bw: float = H100_HOST_LINK_BW
     # asymmetric K/V offload policy: split-half residency, quantized swap
     # payloads, keep-K drop policy, k-early prefetch (core/offload.py).
     # The default config reproduces the symmetric fp swap path exactly.
@@ -224,7 +228,7 @@ class AsymCacheServer:
         scfg.scheduler.block_size = scfg.block_size
         self.freq = FreqParams.from_turning_point(
             scfg.lifespan, scfg.reuse_prob, scfg.slope_ratio)
-        self.cost_model = cost_model or analytic_cost_model(cfg)
+        self.cost_model = cost_model or analytic_cost_model(cfg, H100)
         # clock="model" uses (possibly different, paper-scale) constants
         self.sim_cost_model = sim_cost_model or self.cost_model
         policy = make_policy(scfg.policy, self.freq,

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _h100_costs import cost_model
 from repro.analysis import collect_malformed_allows as j_malformed
 from repro.analysis import lattice as j_lattice
 from repro.analysis import leases as j_leases
@@ -382,7 +383,11 @@ def test_footprints_match_reference_buffer_for_buffer(attn_mode):
 @pytest.fixture(scope="module")
 def gate_keys(_one_thread):
     """The replay's prediction, the reference's on the same
-    configuration, and the port engine's buckets_used on the CPU."""
+    configuration, and the port engine's buckets_used on the CPU.  The
+    reference's replay builds its server with its default cost model,
+    which is made the port's default (the H100's rates, ``_h100_costs``)
+    for the call: both replays must price the same schedule."""
+    import repro.serving.server as j_server
     from repro.analysis.lattice import _gate_setup as j_gate_setup
     from repro.analysis.lattice import _gate_workloads as j_gate_workloads
     from repro.configs import get_smoke_config as j_smoke
@@ -395,10 +400,13 @@ def gate_keys(_one_thread):
                                       ecfg=ecfg)
     _, jscfg, jecfg = j_gate_setup()
     jecfg = dataclasses.replace(jecfg, max_blocks_per_seq=64)
-    ref = j_lattice.predict_trace_keys(
-        j_scaled(j_smoke("llama31-8b"), dtype="float32"), jscfg,
-        j_gate_workloads(), ecfg=JE(**{f.name: getattr(jecfg, f.name)
-                                       for f in dataclasses.fields(JE)}))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_server, "analytic_cost_model",
+                   lambda cfg: cost_model(j_server, cfg))
+        ref = j_lattice.predict_trace_keys(
+            j_scaled(j_smoke("llama31-8b"), dtype="float32"), jscfg,
+            j_gate_workloads(), ecfg=JE(**{f.name: getattr(jecfg, f.name)
+                                           for f in dataclasses.fields(JE)}))
     srv = AsymCacheServer(cfg, init_params(cfg, seed=0, device="cpu"),
                           scfg, ecfg=ecfg, device="cpu")
     for wl in lattice._gate_workloads():

@@ -11,6 +11,7 @@ import torch
 
 import repro.serving as J
 import repro_torch.serving as P
+from _h100_costs import PCIE_BW, cost_model
 from repro.configs import get_smoke_config as j_smoke, scaled_config as j_scaled
 from repro.kernels.msa import build_worklist as j_build_worklist
 from repro.models import init_params as j_init
@@ -39,12 +40,13 @@ def small():
 def _server(M, cfg, params, attn_mode="fused", **kw):
     scfg = M.ServerConfig(
         policy="asymcache", num_blocks=NB, block_size=16, clock="model",
-        attn_mode=attn_mode,
+        attn_mode=attn_mode, pcie_bw=PCIE_BW,
         scheduler=M.SchedulerConfig(token_budget=128, max_chunk=64,
                                     max_prefills=2, max_decodes=8))
     ecfg = M.EngineConfig(num_pages=NB, page_size=16, max_prefills=2,
                           max_chunk=64, max_decodes=8, attn_mode=attn_mode)
-    return M.AsymCacheServer(cfg, params, scfg, ecfg=ecfg, **kw)
+    return M.AsymCacheServer(cfg, params, scfg, ecfg=ecfg,
+                             cost_model=cost_model(M, cfg), **kw)
 
 
 def _mixed_plan(cfg, tp, attn_mode):

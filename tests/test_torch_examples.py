@@ -18,6 +18,7 @@ import torch
 
 import repro.serving as J
 import repro_torch.serving as P
+from _h100_costs import PCIE_BW, cost_model
 from repro.configs import get_smoke_config, scaled_config
 from repro.models import init_params
 from repro_torch.bridge import params_from_numpy
@@ -95,9 +96,10 @@ def _same_config(port_srv, ref_srv):
 def _ref_server(cfg, params, num_blocks, **kw):
     return J.AsymCacheServer(cfg, params, J.ServerConfig(
         policy="asymcache", num_blocks=num_blocks, block_size=16,
-        clock="model",
+        clock="model", pcie_bw=PCIE_BW,
         scheduler=J.SchedulerConfig(token_budget=128, max_chunk=64,
-                                    max_prefills=2, max_decodes=8), **kw))
+                                    max_prefills=2, max_decodes=8), **kw),
+        cost_model=cost_model(J, cfg))
 
 
 def _rel(a, b):
@@ -148,9 +150,10 @@ def test_prefix_sharing_matches_reference(small_model, port_servers):
             J.SharedPrefixConfig(**{**PREFIX_WL, "n_jobs": 4}))
         ref_srv = J.AsymCacheServer(cfg, jp, J.ServerConfig(
             policy="asymcache", num_blocks=320, block_size=16,
-            clock="model", prefix_sharing=sharing,
+            clock="model", prefix_sharing=sharing, pcie_bw=PCIE_BW,
             scheduler=J.SchedulerConfig(token_budget=256, max_chunk=128,
-                                        max_prefills=2, max_decodes=8)))
+                                        max_prefills=2, max_decodes=8)),
+            cost_model=cost_model(J, cfg))
         ref = ref_srv.run(ref_wl)
         _same_config(port_srv, ref_srv)
         _same_run(res, wl, ref, ref_wl)
@@ -185,12 +188,13 @@ def _ref_online(cfg, jp, n_jobs, cancel_sid):
     """``examples/serve_online.py``'s run through the JAX package."""
     srv = J.AsymCacheServer(cfg, jp, J.ServerConfig(
         policy="asymcache", num_blocks=40, block_size=16, clock="model",
-        host_blocks=24,
+        host_blocks=24, pcie_bw=PCIE_BW,
         scheduler=J.SchedulerConfig(token_budget=160, max_chunk=96,
                                     max_prefills=2, max_decodes=8)),
         ecfg=J.EngineConfig(num_pages=40, page_size=16, max_prefills=2,
                             max_chunk=96, max_decodes=8,
-                            max_blocks_per_seq=32))
+                            max_blocks_per_seq=32),
+        cost_model=cost_model(J, cfg))
     streamed = {}
 
     def on_token(req, tok):

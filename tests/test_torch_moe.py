@@ -21,6 +21,7 @@ import torch
 
 import repro.serving as J
 import repro_torch.serving as P
+from _h100_costs import PCIE_BW, cost_model
 from repro.configs import get_smoke_config, scaled_config
 from repro.models import init_params as j_init
 from repro.models import layers as jlayers
@@ -208,12 +209,13 @@ COUNTERS = ("steps", "n_requests", "evictions", "swap_ins", "swap_outs",
 def _server(M, cfg, params, attn_mode, **kw):
     scfg = M.ServerConfig(
         policy="asymcache", num_blocks=40, block_size=16, clock="model",
-        host_blocks=16, attn_mode=attn_mode,
+        host_blocks=16, attn_mode=attn_mode, pcie_bw=PCIE_BW,
         scheduler=M.SchedulerConfig(token_budget=128, max_chunk=64,
                                     max_prefills=2, max_decodes=8))
     ecfg = M.EngineConfig(num_pages=40, page_size=16, max_prefills=2,
                           max_chunk=64, max_decodes=8, attn_mode=attn_mode)
-    return M.AsymCacheServer(cfg, params, scfg, ecfg=ecfg, **kw)
+    return M.AsymCacheServer(cfg, params, scfg, ecfg=ecfg,
+                             cost_model=cost_model(M, cfg), **kw)
 
 
 def _workload(M):

@@ -17,6 +17,7 @@ import torch
 
 import repro.serving as J
 import repro_torch.serving as P
+from _h100_costs import PCIE_BW, cost_model
 from repro.configs import get_smoke_config as j_smoke, scaled_config as j_scaled
 from repro.kernels.msa import build_worklist as j_build_worklist
 from repro.models import init_params as j_init
@@ -46,6 +47,7 @@ def small():
 def _configs(M, k):
     scfg = M.ServerConfig(
         policy="asymcache", num_blocks=NB, block_size=16, clock="model",
+        pcie_bw=PCIE_BW,
         scheduler=M.SchedulerConfig(token_budget=128, max_chunk=64,
                                     max_prefills=2, max_decodes=8,
                                     max_decode_steps=k))
@@ -328,7 +330,8 @@ def test_port_server_matches_reference_at_k(small, k):
     for M, params, kw in ((J, jp, {}), (P, tp, dict(device="cpu"))):
         scfg, ecfg = _configs(M, k)
         wl = M.decode_burst_workload(n_requests=6, seed=4)
-        srv = M.AsymCacheServer(cfg, params, scfg, ecfg=ecfg, **kw)
+        srv = M.AsymCacheServer(cfg, params, scfg, ecfg=ecfg,
+                                cost_model=cost_model(M, cfg), **kw)
         runs.append((wl, srv.run(wl), srv.engine))
     (wj, rj, ej), (wt, rt, et) = runs
     assert rt["multi_token_dispatches"] > 0

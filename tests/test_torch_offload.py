@@ -24,6 +24,7 @@ import repro.serving as J
 import repro_torch.core as PK
 import repro_torch.serving as P
 from conftest import assert_drained
+from _h100_costs import PCIE_BW, cost_model
 from repro.configs import get_smoke_config, scaled_config
 from repro.kernels.msa import apply_swap_ins as j_apply_swap_ins
 from repro.models import init_params as j_init
@@ -211,10 +212,11 @@ WL = dict(n_sessions=3, turns_per_session=(2, 3), first_ctx_len=(96, 200),
 def _server(M, cfg, params, offload, **kw):
     scfg = M.ServerConfig(
         policy="asymcache", num_blocks=40, block_size=16, clock="model",
-        host_blocks=128, pipeline_depth=1, offload=offload,
+        host_blocks=128, pipeline_depth=1, offload=offload, pcie_bw=PCIE_BW,
         scheduler=M.SchedulerConfig(token_budget=128, max_chunk=64,
                                     max_prefills=2, max_decodes=8))
-    return M.AsymCacheServer(cfg, params, scfg, **kw)
+    return M.AsymCacheServer(cfg, params, scfg,
+                             cost_model=cost_model(M, cfg), **kw)
 
 
 @pytest.mark.parametrize("quant", ["int8", "fp8"])

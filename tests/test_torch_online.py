@@ -19,6 +19,7 @@ import repro_torch.configs as PC
 import repro_torch.core as PK
 import repro_torch.serving as P
 from conftest import assert_drained
+from _h100_costs import PCIE_BW, cost_model
 from repro.models import init_params as j_init
 from repro_torch.bridge import params_from_numpy
 
@@ -41,13 +42,15 @@ def _real_server(pkg, cfg, params, k):
     M = PACKAGES[pkg][0]
     scfg = M.ServerConfig(
         policy="asymcache", num_blocks=256, block_size=16, clock="model",
+        pcie_bw=PCIE_BW,
         scheduler=M.SchedulerConfig(token_budget=160, max_chunk=96,
                                     max_prefills=2, max_decodes=8,
                                     max_decode_steps=k))
     ecfg = M.EngineConfig(num_pages=256, page_size=16, max_prefills=2,
                           max_chunk=96, max_decodes=8, max_blocks_per_seq=32)
     kw = dict(device="cpu") if pkg == "port" else {}
-    return M.AsymCacheServer(cfg, params, scfg, ecfg=ecfg, **kw)
+    return M.AsymCacheServer(cfg, params, scfg, ecfg=ecfg,
+                             cost_model=cost_model(M, cfg), **kw)
 
 
 def _sim_server(pkg, num_blocks, host_blocks=0, max_decode_steps=1):
@@ -57,6 +60,7 @@ def _sim_server(pkg, num_blocks, host_blocks=0, max_decode_steps=1):
     scfg = M.ServerConfig(
         policy="asymcache", num_blocks=num_blocks, block_size=16,
         clock="model", execute_model=False, host_blocks=host_blocks,
+        pcie_bw=PCIE_BW,
         scheduler=M.SchedulerConfig(token_budget=192, max_chunk=96,
                                     max_prefills=2, max_decodes=16,
                                     max_decode_steps=max_decode_steps))

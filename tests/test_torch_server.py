@@ -16,6 +16,7 @@ import repro.serving as J
 import repro_torch.serving as P
 from repro.configs import get_smoke_config, scaled_config
 from repro.models import init_params
+from _h100_costs import PCIE_BW, cost_model
 from repro_torch.bridge import params_from_numpy
 
 LOGIT_REL_TOL = 1e-4
@@ -35,13 +36,14 @@ def _mk_server(M, cfg, params, *, depth, num_blocks, host_blocks,
     scfg = M.ServerConfig(
         policy="asymcache", num_blocks=num_blocks, block_size=16,
         clock="model", pipeline_depth=depth, host_blocks=host_blocks,
-        attn_mode=attn_mode,
+        attn_mode=attn_mode, pcie_bw=PCIE_BW,
         scheduler=M.SchedulerConfig(token_budget=128, max_chunk=64,
                                     max_prefills=2, max_decodes=8))
     ecfg = M.EngineConfig(num_pages=num_blocks, page_size=16,
                           max_prefills=2, max_chunk=64, max_decodes=8,
                           attn_mode=attn_mode)
-    return M.AsymCacheServer(cfg, params, scfg, ecfg=ecfg, **kw)
+    return M.AsymCacheServer(cfg, params, scfg, ecfg=ecfg,
+                             cost_model=cost_model(M, cfg), **kw)
 
 
 def _workload(M, kind):
@@ -49,7 +51,10 @@ def _workload(M, kind):
         return M.multi_turn_workload(M.WorkloadConfig(
             n_sessions=3, turns_per_session=(2, 3), first_ctx_len=(96, 180),
             output_len=(12, 30), qps=1.0, seed=3))
-    return M.shared_prefix_workload(M.SharedPrefixConfig(n_jobs=4, seed=1))
+    # 0.2 jobs a second: at the H100's 52 ms a step (``_h100_costs``) the
+    # default 2 overlaps the four jobs so that no spilled block comes back
+    return M.shared_prefix_workload(M.SharedPrefixConfig(n_jobs=4, qps=0.2,
+                                                         seed=1))
 
 
 def _rel(a, b):

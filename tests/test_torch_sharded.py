@@ -23,6 +23,7 @@ import torch
 
 import repro.serving as J
 import repro_torch.serving as P
+from _h100_costs import PCIE_BW, cost_model
 from repro.configs import get_smoke_config as j_smoke
 from repro.configs import scaled_config as j_scaled
 from repro.core.offload import HostHalf as JHalf
@@ -473,12 +474,13 @@ def _equiv_server(M, cfg, params, n_shards, depth, **kw):
     port's ``buckets_for`` refuses, so both packages run at 32."""
     scfg = M.ServerConfig(
         num_blocks=48, block_size=16, clock="model", pipeline_depth=depth,
-        n_shards=n_shards, host_blocks=16,
+        n_shards=n_shards, host_blocks=16, pcie_bw=PCIE_BW,
         scheduler=M.SchedulerConfig(token_budget=128, max_chunk=48,
                                     max_prefills=2, max_decodes=8), **kw)
     ecfg = M.EngineConfig(num_pages=48, page_size=16, max_prefills=2,
                           max_chunk=48, max_decodes=8, max_blocks_per_seq=32)
-    return M.AsymCacheServer(cfg, params, scfg, ecfg=ecfg)
+    return M.AsymCacheServer(cfg, params, scfg, ecfg=ecfg,
+                             cost_model=cost_model(M, cfg))
 
 
 @pytest.fixture(scope="module")
