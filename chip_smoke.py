@@ -68,6 +68,23 @@ Phases:
      chunks but do not require one: on the wall clock the schedule, and
      so which pages are evicted before a session's next turn, follows
      the step times of the card and host.
+  3c. The synchronous baseline of the paper's §5.3 (the JAX package's
+     ``benchmarks/pipeline.py`` baseline): the same workload on the model
+     clock through ``ServerConfig(pipeline_depth=0)`` and
+     ``EngineConfig(attn_mode="split", assembly="legacy",
+     return_full_logits=True, max_instep_copies=0)`` (per-token Python
+     assembly with one host-to-device copy a field, the full (68, 128256)
+     logits moved to the host every step, page copies eager), held to
+     3b's model-clock split run, the overlapped arm (depth 1, vectorized,
+     sampling on the card): the same steps, evictions, recomputed tokens
+     and multi-segment chunks, the same generated tokens and sampled ids,
+     first logits with the same bits, ``msa_prefill`` and ``msa_decode``
+     launched L x steps times each and ``msa_fused`` never, every
+     handle's logits (R+B, V); both arms' wall seconds, steps/s,
+     control-plane seconds a step, mean assembly seconds, bytes moved to
+     the host a step and the host seconds a step spent fetching them, and
+     their ratio (one pair, not a claim); the (68, 128256) transfer alone
+     from an idle device, to a fresh pageable array and to a pinned one.
   4. Profile a short serving run (``torch.profiler``, one request of
      phase 3's workload) in each layout:
      device time by kernel, the share of the kernels each attention call
@@ -86,11 +103,14 @@ Phases:
      step variant a bucket, and each turn's first logits match the dense
      reference; TTFT, TPOT and job latency.  The same scripts at k = 1 on
      the wall clock (TPOT beside k = 8), then at k = 1 and k = 8 on the
-     model clock over the first 8 layers: equal outputs and first sampled
+     model clock over the first 4 layers (8 before phase 3c was added,
+     whose time this cut helps pay for): equal outputs and first sampled
      ids, the share of equal ids, first logits within tolerance, fewer
-     decode-only dispatches at k = 8.  Last, one decode-only plan as one k = 8 dispatch against 8
-     single dispatches on the same pools: the same bits in ids and pools.
-  6. Quantized offload, same model cut to its first 8 layers: phase 5's
+     decode-only dispatches at k = 8.  Last, one decode-only plan as one
+     k = 8 dispatch against 8 single dispatches on the same pools: the
+     same bits in ids and pools.
+  6. Quantized offload, same model cut to its first 2 layers (8 before
+     phase 3c was added, whose time this cut helps pay for): phase 5's
      agentic scripts at k = 8 on the model clock with
      ``OffloadConfig(quant="int8", retain_host=True)``
      (int8 codes and scales on the wire, the pool snapped to the int8 grid
@@ -118,7 +138,8 @@ Phases:
      schedule and first sampled ids, the share of equal ids, first logits
      within tolerance of it and of the dense reference, one (o, lse)
      launch a shard a layer a step, each shard's weight bytes; then over
-     4 shards on the first 2 sessions; a profile of one request at N = 2.
+     4 shards on the first of the 4 sessions (2 before phase 3c was
+     added); a profile of one request at N = 2.
   9. (after 7, Grok-1 freed) The full model (``repro_torch.models``:
      ``forward``, ``init_decode_state``, ``prep_cross_attention``,
      ``decode_step``; plain PyTorch, no kernel of its own) at full width
@@ -134,7 +155,8 @@ Phases:
      (``last_only``, ``return_kv``; CUDA events, median of 5), decode ms a
      token on the wall clock and on the device alone (profiler), peak
      device memory.  Then the same in float32 (TF32 off; < 2e-3, the JAX
-     package's bar), Gemma-3 cut to its first 12 layers.
+     package's bar), Gemma-3 cut to its first 12 layers, Mamba2-780m to
+     24 and Hymba-1.5B to 16 (full depth before phase 3c was added).
   10. (after 9, everything freed) Training (``repro_torch.training``;
      autograd over the full model, no kernel of its own), bf16, AdamW,
      remat on, random weights from seed 0 with wq/wk at fan-in, TF32
@@ -227,18 +249,20 @@ Phases:
      dispatches; the pinned host->device and device->host copy rates (and
      the pageable host->device one) at one block's K and V payload.
 
-Phase 9 prints one ``full_model:`` JSON line a model and dtype, phase 10
-one ``train:`` line a run and one ``train_remat:`` line, phase 11 one
-``sharded_model:`` line a run, phase 12 one ``dryrun:`` line a case,
-phase 13 one ``example:`` line an example, phase 14 one ``cost_fit:``
-line a fit (the step, the kernel: k1..k6, β, R², Eq. 7's slope beside
-the analytic H100 model's and its median error against the steps) and a
-``cost_model:`` line (checks, launches, link rates, every instance's two
-times) (each with the card line).  Prints the card line again, the (o, lse)
-mode's row and the kernel table (all three kernels) as JSON lines, and,
-last, ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero
-exit).  Each phase is a function; ``main`` runs them all in order
-(phases 12, 13 and 14 after the phases whose models they reuse).
+Phase 3c prints one ``sync_vs_overlapped:`` JSON line (with the card
+line).  Phase 9 prints one ``full_model:`` JSON line a model and dtype,
+phase 10 one ``train:`` line a run and one ``train_remat:`` line, phase
+11 one ``sharded_model:`` line a run, phase 12 one ``dryrun:`` line a
+case, phase 13 one ``example:`` line an example, phase 14 one
+``cost_fit:`` line a fit (the step, the kernel: k1..k6, β, R², Eq. 7's
+slope beside the analytic H100 model's and its median error against the
+steps) and a ``cost_model:`` line (checks, launches, link rates, every
+instance's two times) (each with the card line).  Prints the total
+seconds of the phases, then the card line again, the (o, lse) mode's row
+and the kernel table (all three kernels) as JSON lines, and, last,
+``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit).
+Each phase is a function; ``main`` runs them all in order (phases 12, 13
+and 14 after the phases whose models they reuse).
 Needs a CUDA device and the repository's ``src/`` beside this file.
 """
 from __future__ import annotations
@@ -1362,15 +1386,18 @@ def serve_phase():
     # later turns find part of their history evicted and recompute it
     num_blocks = 256
 
-    def make_server(attn_mode="fused", clock="wall", n_shards=1):
-        # n_shards > 1: sharded serving, every shard on this one card
+    def make_server(attn_mode="fused", clock="wall", n_shards=1, depth=1,
+                    **ecfg_kw):
+        # n_shards > 1: sharded serving, every shard on this one card;
+        # depth: the server's pipeline depth (0: synchronous)
         ecfg = EngineConfig(num_pages=num_blocks, page_size=16,
                             max_prefills=4, max_chunk=128, max_decodes=64,
-                            max_blocks_per_seq=128, attn_mode=attn_mode)
+                            max_blocks_per_seq=128, attn_mode=attn_mode,
+                            **ecfg_kw)
         return AsymCacheServer(
             cfg, params, ServerConfig(
                 num_blocks=num_blocks, clock=clock, attn_mode=attn_mode,
-                n_shards=n_shards,
+                n_shards=n_shards, pipeline_depth=depth,
                 shard_devices=["cuda:0"] * n_shards if n_shards > 1
                 else None), ecfg=ecfg)
 
@@ -1460,13 +1487,169 @@ def split_serve_phase(fused):
     for mode in ("fused", "split"):
         s_ = make_server(mode, clock="model")
         w_ = make_workload(seed=0)
-        r_, seg_, launches_ = _measured_run(s_, lambda: s_.run(w_))
+        with _HostBytes() as moved:
+            r_, seg_, launches_ = _measured_run(s_, lambda: s_.run(w_))
+        r_["host_bytes"], r_["fetch_s"] = moved.n, moved.s
         runs[mode] = (w_, r_, seg_)
     line = _agreement(runs["fused"], runs["split"], fused["refs"])
     print("split_vs_fused: " + json.dumps(line), flush=True)
     assert runs["fused"][2] > 0, \
         ("no prefill chunk recomputed a multi-segment history", line)
-    return launches, runs["fused"]
+    return launches, runs["fused"], runs["split"]
+
+
+class _HostBytes:
+    """While active, counts the bytes that ``StepHandle``'s host
+    accessors move from the card (each array once, when it is first
+    fetched): the ids, and the prefill rows or, under
+    ``return_full_logits``, all the step's logits; and the host seconds
+    spent in those first fetches (the wait for the device's queue, the
+    copy, the host array)."""
+
+    ACCESSORS = (("token_ids_np", "_ids_np"),
+                 ("prefill_logits_np", "_pre_np"))
+
+    def __init__(self):
+        self.n = 0
+        self.s = 0.0
+
+    def __enter__(self):
+        from repro_torch.serving.engine import StepHandle
+        self._orig = {name: getattr(StepHandle, name)
+                      for name, _ in self.ACCESSORS}
+        for name, attr in self.ACCESSORS:
+            def counted(handle, fn=self._orig[name], attr=attr):
+                fresh = getattr(handle, attr) is None
+                t0 = time.perf_counter()
+                out = fn(handle)
+                if fresh:
+                    self.s += time.perf_counter() - t0
+                    self.n += out.nbytes
+                return out
+            setattr(StepHandle, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serving.engine import StepHandle
+        for name, fn in self._orig.items():
+            setattr(StepHandle, name, fn)
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the synchronous baseline against the overlapped pipeline
+# ---------------------------------------------------------------------------
+
+# the synchronous control plane of the paper's §5.3 (the JAX package's
+# benchmarks/pipeline.py baseline): dispatch, wait, postprocess in order;
+# per-token Python assembly with one host-to-device copy a field; the
+# full (R+B, V) logits moved to the host every step; page copies eager
+BASELINE = dict(attn_mode="split", depth=0, assembly="legacy",
+                return_full_logits=True, max_instep_copies=0)
+
+
+def sync_baseline_phase(card, fused, overlapped):
+    """Phase 3b's workload on the model clock through the synchronous
+    baseline, held to 3b's model-clock split run (``overlapped``: depth 1,
+    vectorized assembly, sampling on the card): both launch the split
+    kernels on the same inputs, so the schedules, tokens, ids and first
+    logits (bits) must be equal.  Prints both arms' wall seconds,
+    steps/s, control-plane seconds a step, assembly seconds, bytes moved
+    to the host a step and host seconds a step spent fetching them, their
+    ratio (one pair), and the full-logits transfer alone from an idle
+    device, to a fresh pageable array and to a pinned buffer."""
+    import torch
+    t0 = time.perf_counter()
+    cfg, make_server, make_workload = (fused["cfg"], fused["make_server"],
+                                       fused["make_workload"])
+    L = cfg.n_layers
+    # no warm-up of its own: 3b's runs launched the same kernels and
+    # products at the same shapes just before
+    srv = make_server(clock="model", **BASELINE)
+    wl = make_workload(seed=0)
+    e = srv.engine.ecfg
+    shapes, dispatch = set(), srv.engine.dispatch
+
+    def shaped(plan):
+        handle = dispatch(plan)
+        shapes.add(tuple(handle.prefill_logits.shape))
+        return handle
+
+    srv.engine.dispatch = shaped
+    with _HostBytes() as moved:
+        res, seg, launches = _measured_run(srv, lambda: srv.run(wl))
+    res["host_bytes"], res["fetch_s"] = moved.n, moved.s
+    steps = srv.engine.steps_executed
+    ow, ores, oseg = overlapped
+    same = {k: (ores[k], res[k]) for k in
+            ("steps", "evictions", "prefill_compute_tokens")}
+    same["multi_segment_chunks"] = (oseg, seg)
+    equal = {
+        "generated": all(a.generated == b.generated for a, b in zip(ow, wl)),
+        "sampled_ids": all(a.sampled_ids == b.sampled_ids
+                           for a, b in zip(ow, wl)),
+        "first_logits_bits": all(
+            np.array_equal(a.first_logits.view(np.int32),
+                           b.first_logits.view(np.int32))
+            for a, b in zip(ow, wl))}
+
+    def arm(r):
+        return {"wall_s": r["wall_time"],
+                "steps_per_s": r["steps"] / r["wall_time"],
+                "control_plane_s_per_step":
+                    r["control_plane_time"] / r["steps"],
+                "assembly_mean_s": statistics.mean(r["assembly_s"]),
+                "host_bytes_per_step": r["host_bytes"] / r["steps"],
+                "fetch_s_per_step": r["fetch_s"] / r["steps"]}
+
+    base, over = arm(res), arm(ores)
+    # the baseline's transfer alone, from an idle device: a step's
+    # (R+B, V) bf16 logits to a fresh host array as
+    # StepHandle.prefill_logits_np moves them, and into a reused pinned
+    # buffer (median wall ms of 7)
+    rows = e.max_prefills + e.max_decodes
+    lg = torch.randn((rows, cfg.vocab_size), device="cuda",
+                     dtype=torch.bfloat16)
+    pinned = torch.empty((rows, cfg.vocab_size), dtype=torch.float32,
+                         pin_memory=True)
+
+    def fetch_ms(fn):
+        times = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t1) * 1e3)
+        return statistics.median(times)
+
+    fetch = {"pageable_ms": fetch_ms(lambda: lg.float().cpu().numpy()),
+             "pinned_ms": fetch_ms(lambda: pinned.copy_(lg.float()))}
+    fetch["pageable_gb_per_s"] = pinned.nbytes / fetch["pageable_ms"] / 1e6
+    fetch["pinned_gb_per_s"] = pinned.nbytes / fetch["pinned_ms"] / 1e6
+    del lg, pinned
+    line = {"card": card, "model": cfg.name, "layers": L,
+            "dtype": cfg.dtype, "clock": "model", "schedule": same,
+            "equal": equal, "requests": len(wl),
+            "kernel_launches": launches, "full_logits_shapes":
+                sorted(shapes), "baseline": base, "overlapped": over,
+            "full_logits_fetch_idle": fetch,
+            "overlapped_over_baseline_steps_per_s":
+                over["steps_per_s"] / base["steps_per_s"],
+            "baseline_over_overlapped_control_plane":
+                base["control_plane_s_per_step"]
+                / over["control_plane_s_per_step"],
+            "phase_s": time.perf_counter() - t0}
+    print("sync_vs_overlapped: " + json.dumps(line), flush=True)
+    assert all(r.status == "finished" for r in wl), [r.status for r in wl]
+    assert all(a == b for a, b in same.values()), line
+    assert all(equal.values()), line
+    assert launches == {"msa_fused": 0, "msa_prefill": L * steps,
+                        "msa_decode": L * steps, "msa_fused_partial": 0}, \
+        (launches, steps)
+    assert shapes == {(rows, cfg.vocab_size)}, shapes
+    assert srv.engine.jit_traces == len(srv.engine.buckets_used) == 1
+    assert res["instep_copies"] == 0
+    assert res["host_bytes"] >= steps * rows * cfg.vocab_size * 4, \
+        res["host_bytes"]
 
 
 def _agreement(base, other, refs):
@@ -1510,8 +1693,9 @@ def _agreement(base, other, refs):
 # N = 4 serves the first SHARD_CUT_SESSIONS of the workload's four
 # sessions: its host runs four shards' ops a layer, about four times a
 # single-device step's.  The cut evicts nothing; N = 2 serves the whole
-# workload, evictions and the multi-segment chunk included
-SHARD_CUT_SESSIONS = 2
+# workload, evictions and the multi-segment chunk included.  (2 sessions
+# until phase 3c was added, whose time this cut helps pay for.)
+SHARD_CUT_SESSIONS = 1
 
 
 def _tensor_bytes(tree, spec=None, n=1) -> int:
@@ -1566,7 +1750,7 @@ def sharded_phase(fused, fused_model):
             "n_shards": n, "devices": [str(d) for d in
                                        srv.engine.group.devices],
             "workload": "whole" if n == 2 else
-                        f"first {SHARD_CUT_SESSIONS} sessions",
+                        f"first {SHARD_CUT_SESSIONS} of 4 sessions",
             "steps": steps, "kernel_launches": launches,
             "per_shard_used": rn["per_shard_used"],
             "weight_gb_total": total / 1e9,
@@ -1880,12 +2064,15 @@ def _f8_cast_check():
     assert line["decode_256_codes_equal"], line
 
 
-# phases 5 (its model-clock pair) and 6 serve Llama-3.1-8B's first 8
-# layers (the same weights): phase 6's
-# four closed-loop runs take ~4 minutes at 32 layers, and neither the
-# identity of the arms nor the byte ratio depends on the depth (a block's
-# payload is the layers times one layer's page)
-OFFLOAD_LAYERS = 8
+# phase 5's model-clock pair serves Llama-3.1-8B's first 4 layers and
+# phase 6 its first 2 (the same weights; both 8 until phase 3c was added,
+# whose time these cuts help pay for): phase 6's four closed-loop runs
+# take ~4 minutes at 32 layers (~1 at 8), and neither the identity of the
+# arms nor the byte ratio depends on the depth (a block's payload is the
+# layers times one layer's page; the schedules, swap-ins and prefetches
+# are those of 8 layers within a step or two)
+OFFLOAD_LAYERS = 4
+OFFLOAD_PHASE_LAYERS = 2
 
 
 def _first_layers(cfg, params, n):
@@ -1901,11 +2088,11 @@ def offload_phase(full_cfg, full_params):
     its control arm with full-precision payloads (the pool is snapped to
     the same grid in both): the same bits out, the compressed bytes on
     the wire.  Then a spilled page's round trip and the fp8 codes against
-    the CPU.  The model is ``full_cfg`` cut to ``OFFLOAD_LAYERS`` layers,
-    on views of ``full_params``' first layers."""
+    the CPU.  The model is ``full_cfg`` cut to ``OFFLOAD_PHASE_LAYERS``
+    layers, on views of ``full_params``' first layers."""
     from repro_torch.core import OffloadConfig
     from repro_torch.serving import SessionState, reference_logits
-    cfg, params = _first_layers(full_cfg, full_params, OFFLOAD_LAYERS)
+    cfg, params = _first_layers(full_cfg, full_params, OFFLOAD_PHASE_LAYERS)
     cuts = {"n_layers": [full_cfg.n_layers, cfg.n_layers]}
     for quant in ("int8", "fp8"):
         arms = {}
@@ -2155,10 +2342,13 @@ REFERENCE_BF16_DRIFT = {"mamba2-780m": 0.27636054158210754}
 # (past its window of 1024) and holds its banded forward to the chunked
 # one; Mamba-2 crosses chunks of 256; Hymba crosses its window of 2048
 # (and pads 2112 to chunks of 256); Whisper's decoder runs 128 tokens
-# over a 1500-frame encoder
+# over a 1500-frame encoder.  The float32 runs of Mamba-2 and Hymba are
+# cut to half their depth (full depth until phase 3c was added, whose
+# time the cut helps pay for); Hymba's first 16 layers keep its global
+# layer 15
 FULL_MODELS = (("gemma3-12b", 2, 2048, 32, 12, True),
-               ("mamba2-780m", 2, 512, 512, None, False),
-               ("hymba-1.5b", 1, 2112, 2112, None, False),
+               ("mamba2-780m", 2, 512, 512, 24, False),
+               ("hymba-1.5b", 1, 2112, 2112, 16, False),
                ("whisper-large-v3", 2, 128, 128, None, False))
 # eager decode steps a run times on the wall clock before the rest of the
 # run replays one captured step (an eager step takes the host 45-125 ms at
@@ -2341,7 +2531,7 @@ def full_model_run(card, arch, dtype, batch, seq, steps, n_layers=None,
 def full_model_phase(card, models=FULL_MODELS):
     """Phase 9: Gemma-3-12B, Mamba2-780m, Hymba-1.5B and Whisper-large-v3
     at full width and depth in bf16 (timed), then each in float32 (full
-    depth; Gemma-3 cut to ``n_layers``)."""
+    depth, or cut to its float32 depth in ``models``)."""
     lines = [full_model_run(card, arch, "bfloat16", b, s, n, banded=band)
              for arch, b, s, n, _, band in models]
     lines += [full_model_run(card, arch, "float32", b, s, n, n_layers=depth,
@@ -3696,8 +3886,11 @@ def main() -> int:
     done("3")
     dryrun_lattice_phase(card, fused)
     done("12c")
-    split_launches, fused_model = split_serve_phase(fused)
+    split_launches, fused_model, split_model = split_serve_phase(fused)
     done("3b")
+    sync_baseline_phase(card, fused, split_model)
+    del split_model
+    done("3c")
     for mode in ("fused", "split"):
         profile_phase(fused["make_server"], fused["make_workload"], mode,
                       n_requests=1)
@@ -3763,6 +3956,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     examples_phase(card)
     done("13b")
+    print(f"total: {time.perf_counter() - start:.1f} s of the script's "
+          "phases", flush=True)
 
     fused_main = fused_results[("main", "bfloat16")]
     src = "src/repro_torch/kernels/msa/csrc/"

@@ -59,7 +59,8 @@ def enumerate_lattice(ecfg, n_shards: int = 1,
         w_buckets = ()
         w_note = (f"data-dependent powers of two >= WL_BUCKET="
                   f"{WL_BUCKET} (predicted per plan by the replay)")
-    multi_token_ok = ecfg.attn_mode == "fused" and n_shards == 1
+    multi_token_ok = (ecfg.attn_mode == "fused" and n_shards == 1
+                      and ecfg.assembly != "legacy")
     kmax = max_decode_steps if multi_token_ok else 1
     k_values = tuple(1 << i for i in range(max(1, kmax).bit_length())
                      if (1 << i) <= max(1, kmax))
@@ -240,7 +241,8 @@ def predict_trace_keys(cfg, scfg, workloads: Sequence,
     # it on the execute_model path)
     srv.sched.cfg.token_buckets = token_buckets
     srv.sched.cfg.page_buckets = np_buckets
-    if n_shards > 1 or ecfg.attn_mode != "fused":
+    if (n_shards > 1 or ecfg.attn_mode != "fused"
+            or ecfg.assembly == "legacy"):
         srv.sched.cfg.max_decode_steps = 1
 
     keys: List[Tuple[int, int, int, int]] = []

@@ -40,6 +40,12 @@ swap payloads.  Copy-on-write page forks and host-tier swap-ins are
 queued and folded into the step as padded index arrays; overflow past
 the static buckets goes through the eager paths.
 
+The synchronous baseline of the paper's §5.3 (with the server's
+``pipeline_depth=0``): ``assembly="legacy"`` builds the split layout in
+the reference's per-token loops and moves each field by its own copy,
+and ``return_full_logits`` hands back the full (R+B, V) logits, which
+``StepHandle.block`` moves to the host every step.
+
 Quantized offload: the host-tier swap payloads may travel as int8 codes
 with per-page-per-head scales ("q8") or fp8 codes ("f8") and dequantize
 on the device inside the step, and the KV writes may be snapped to the
@@ -245,6 +251,22 @@ class EngineConfig:
     # the swap-in reproduces the pool bytes bit for bit.
     snap: str = "off"
     snap_scale: float = 0.0
+    # "vectorized": numpy scatters over per-request cached arrays into one
+    # packed buffer, moved by one copy; "legacy": the reference's
+    # per-token Python loops, each field moved by its own copy — the
+    # implementation the vectorized path is tested against and the
+    # synchronous baseline's control plane.  Legacy implies the split
+    # layout.
+    assembly: str = "vectorized"
+    # True restores the pre-pipeline device interface: the step returns
+    # the full (R+B, V) logits and StepHandle.block() moves them all to
+    # the host — the per-step sync the paper's §5.3 overlap removes.
+    # False keeps sampling on the device: only the (R+B,) ids and the
+    # (R, V) prefill rows leave it.
+    return_full_logits: bool = False
+    # The reference's attn_impl and donate_pools have no counterpart here:
+    # the engine's device picks the kernels (CUDA on the card, the plain
+    # versions on the CPU), and every step updates the pools in place.
 
 
 def _host_array(t: torch.Tensor) -> np.ndarray:
@@ -270,16 +292,24 @@ class StepHandle:
     Holds device tensors; nothing is transferred until the ``*_np``
     accessors run, so the server can assemble the next step while this
     one executes.  ``block`` waits on the CUDA event recorded after the
-    step (a no-op on the CPU)."""
+    step (a no-op on the CPU), and when the engine returns full logits
+    (the synchronous baseline's interface) it also moves the (R+B, V)
+    logits and the ids to the host, as the pre-pipeline loop did every
+    step."""
     token_ids: Union[torch.Tensor, np.ndarray]      # (R+B,) or (k, R+B)
-    prefill_logits: Union[torch.Tensor, np.ndarray]  # (R, V) rows
+    # (R, V) rows; (R+B, V) in full-logits mode
+    prefill_logits: Union[torch.Tensor, np.ndarray]
     assembly_time: float = 0.0     # host-side build_inputs seconds
     done: Optional[torch.cuda.Event] = None
+    full_logits: bool = False
     _ids_np: Optional[np.ndarray] = None
     _pre_np: Optional[np.ndarray] = None
 
     def block(self) -> None:
-        if self.done is not None:
+        if self.full_logits:
+            self.prefill_logits_np()   # the baseline's full-vocab transfer
+            self.token_ids_np()
+        elif self.done is not None:
             self.done.synchronize()
 
     def token_ids_np(self) -> np.ndarray:
@@ -319,6 +349,11 @@ class Engine:
                              "'fp8'")
         if ecfg.snap == "int8" and not ecfg.snap_scale > 0.0:
             raise ValueError("snap='int8' needs snap_scale > 0")
+        if ecfg.assembly not in ("vectorized", "legacy"):
+            raise ValueError(f"assembly {ecfg.assembly!r} is neither "
+                             "'vectorized' nor 'legacy'")
+        if ecfg.assembly == "legacy" and ecfg.attn_mode != "split":
+            raise ValueError("legacy assembly implies attn_mode='split'")
         self.cfg = cfg
         self.ecfg = ecfg
         # the (data=1, model=N) serving mesh's model group
@@ -330,6 +365,9 @@ class Engine:
             # as the reference asserts: the split layout predates the
             # work-list metadata the partial needs, and quantized payloads
             # need the single-device engine
+            if ecfg.assembly == "legacy":
+                raise ValueError("legacy assembly requires the "
+                                 "single-device engine")
             if ecfg.attn_mode != "fused":
                 raise ValueError("sharded serving requires attn_mode "
                                  "'fused'")
@@ -498,8 +536,10 @@ class Engine:
                     "copy_src", "copy_dst")))
             x = self._sharded_pass(params, inps, t_bucket)
             token_ids, logits = self._sharded_sample(params, x, inps)
-            return token_ids, logits[:e.max_prefills]
-        inp = self._unpack(inp, t_bucket, np_bucket, w_bucket, n_iter)
+            return token_ids, self._out_logits(logits)
+        if e.assembly != "legacy":
+            # the legacy path moved each field to the device by itself
+            inp = self._unpack(inp, t_bucket, np_bucket, w_bucket, n_iter)
         # swap-ins land first (they commit pages a COW fork in the same
         # round may use as its donor), then copies; both precede the KV
         # writes and attention that read those pages
@@ -538,7 +578,14 @@ class Engine:
                              inp["write_slot"], inp["write_off"],
                              inp["valid"], attend)
         token_ids, logits = self._sample(params, x, inp["sel"])
-        return token_ids, logits[:e.max_prefills]
+        return token_ids, self._out_logits(logits)
+
+    def _out_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """The logits a step hands back: the R prefill rows, or all
+        (R+B, V) under ``return_full_logits``."""
+        if self.ecfg.return_full_logits:
+            return logits
+        return logits[:self.ecfg.max_prefills]
 
     def _layers(self, params, tokens, pos, write_slot, write_off, valid,
                 attend):
@@ -748,7 +795,8 @@ class Engine:
         with k = 1.  Iterations at or past a request's ``decode_iters``
         are masked (valid 0: the KV write lands in the drop page; qlen 0:
         no attention row); the host never consumes their ids.  Returns
-        the ids, (k, R+B), and the last iteration's prefill logit rows."""
+        the ids, (k, R+B), and the last iteration's prefill logit rows
+        (all its rows under ``return_full_logits``)."""
         seq_ids = inp["seq_ids"]
         ids_steps = []
         prev = logits = None
@@ -764,7 +812,7 @@ class Engine:
                 tuple(inp[f][i] for f in UNIT_FIELDS), t_bucket)
             prev, logits = self._sample(params, x, inp["sel"])
             ids_steps.append(prev)
-        return torch.stack(ids_steps), logits[:self.ecfg.max_prefills]
+        return torch.stack(ids_steps), self._out_logits(logits)
 
     # ------------------------------------------------------------------
     def build_inputs(self, plan: StepPlan):
@@ -777,16 +825,27 @@ class Engine:
         iteration, all padded to one shared W, so the bucket key stays
         ``(t, np, w, k)``.  A sharded engine builds one work-list and one
         set of units a shard, over the shard's local pages, all padded to
-        one shared W, and moves the buffer to each shard's device."""
+        one shared W, and moves the buffer to each shard's device.
+
+        Legacy assembly (the synchronous baseline) builds the split
+        layout's eleven fields in per-token loops, folds the page ops into
+        index arrays of their own, and moves each field to the device by
+        its own copy, as the reference's ``{k: jnp.asarray(v)}`` does."""
         t_b, np_b = self.buckets_for(plan)
         n_it = plan.decode_steps
-        if n_it > 1 and self.n_shards > 1:
+        if n_it > 1 and (self.ecfg.attn_mode != "fused"
+                         or self.n_shards > 1
+                         or self.ecfg.assembly == "legacy"):
             raise ValueError("multi-token decode dispatch requires the "
-                             "fused single-device layout")
+                             "fused single-device vectorized layout")
+        if self.ecfg.assembly == "legacy":
+            out = self._assemble_legacy(plan)
+            out.update(self._fold_page_ops())
+            # one host-to-device copy a field: the baseline's cost
+            return ({k: torch.from_numpy(v).to(self.device)
+                     if isinstance(v, np.ndarray) else v
+                     for k, v in out.items()}, (t_b, np_b, 0))
         if self.ecfg.attn_mode != "fused":
-            if n_it > 1:
-                raise ValueError("multi-token decode dispatch requires the "
-                                 "fused single-device layout")
             layout, size = self.pack_layout(t_b, np_b, 0)
             buf = np.zeros((size,), np.int32)
             views = {name: buf[off:off + size_]
@@ -1093,11 +1152,75 @@ class Engine:
                 bt_dec[i, :k] = slots[:k]
             sel[R:R + nd] = R * QP + np.arange(nd, dtype=np.int32)
 
-    def _fold_page_ops(self, views: Dict[str, np.ndarray]
-                       ) -> Dict[str, torch.Tensor]:
-        """Drain queued COW copies / host-tier swap-ins into the padded
-        index fields of the packed buffer (swap padding: dst == num_pages,
-        the drop page); overflow past the static buckets goes eager."""
+    def _assemble_legacy(self, plan: StepPlan) -> Dict[str, np.ndarray]:
+        """The reference's per-token Python-loop assembly of the split
+        layout (the vectorized path's reference and the synchronous
+        baseline's control plane): the same eleven fields as
+        :meth:`_assemble_vectorized`, ``valid`` as bool, the block tables
+        as (R, NP) and (B, NP)."""
+        e = self.ecfg
+        bs = e.page_size
+        R, QP, B, NP = e.max_prefills, e.max_chunk, e.max_decodes, \
+            e.max_blocks_per_seq
+        T = R * QP + B
+        tokens = np.zeros((T,), np.int32)
+        positions = np.zeros((T,), np.int32)
+        valid = np.zeros((T,), bool)
+        write_slot = np.zeros((T,), np.int32)
+        write_off = np.zeros((T,), np.int32)
+        bt_pre = np.zeros((R, NP), np.int32)
+        ctx_pre = np.zeros((R,), np.int32)
+        qlens = np.zeros((R,), np.int32)
+        bt_dec = np.zeros((B, NP), np.int32)
+        ctx_dec = np.ones((B,), np.int32)
+        sel = np.zeros((R + B,), np.int32)
+
+        assert len(plan.prefills) <= R and len(plan.decodes) <= B
+        for r, chunk in enumerate(plan.prefills):
+            req = chunk.req
+            toks = req.all_tokens
+            n = len(chunk.positions)
+            assert n <= QP, (n, QP)
+            base = r * QP
+            for i, p in enumerate(chunk.positions):
+                tokens[base + i] = toks[p]
+                positions[base + i] = p
+                valid[base + i] = True
+                write_slot[base + i] = req.block_slots[p // bs]
+                write_off[base + i] = p % bs
+            qlens[r] = n
+            ctx_pre[r] = chunk.positions[-1] + 1
+            for b, s in enumerate(req.block_slots[:NP]):
+                bt_pre[r, b] = 0 if s is None else s
+            sel[r] = base + n - 1
+
+        for i, req in enumerate(plan.decodes):
+            p = req.prompt_len + len(req.generated) - 1
+            row = R * QP + i
+            tokens[row] = req.generated[-1]
+            positions[row] = p
+            valid[row] = True
+            write_slot[row] = req.block_slots[p // bs]
+            write_off[row] = p % bs
+            ctx_dec[i] = p + 1
+            for b, s in enumerate(req.block_slots[:NP]):
+                bt_dec[i, b] = 0 if s is None else s
+            sel[R + i] = row
+
+        return dict(
+            tokens=tokens, positions=positions, valid=valid,
+            write_slot=write_slot, write_off=write_off,
+            bt_pre=bt_pre, ctx_pre=ctx_pre, qlens=qlens,
+            bt_dec=bt_dec, ctx_dec=ctx_dec, sel=sel)
+
+    def _fold_page_ops(self, views: Optional[Dict[str, np.ndarray]] = None
+                       ) -> Dict[str, object]:
+        """Drain queued COW copies / host-tier swap-ins into padded index
+        fields (swap padding: dst == num_pages, the drop page); overflow
+        past the static buckets goes eager.  With ``views`` the index
+        fields are written into the packed buffer; without (legacy
+        assembly) they come back as arrays of their own beside the
+        payloads."""
         e = self.ecfg
         C = e.max_instep_copies
         copies, self._pending_copies = self._pending_copies, []
@@ -1114,6 +1237,12 @@ class Engine:
         # padding repeats the last real copy (idempotent: sources never
         # alias destinations) or is the identity 0 -> 0 on copy-free steps
         pad_src, pad_dst = copies[-1] if copies else (0, 0)
+        own = views is None
+        if own:
+            S = e.max_instep_swaps
+            views = {name: np.zeros((n,), np.int32) for name, n in (
+                ("copy_src", C), ("copy_dst", C), ("swap_k_dst", S),
+                ("swap_v_dst", S))}
         copy_src, copy_dst = views["copy_src"], views["copy_dst"]
         copy_src[:] = pad_src
         copy_dst[:] = pad_dst
@@ -1123,7 +1252,7 @@ class Engine:
 
         kq, self._pending_swap_k = self._pending_swap_k, []
         vq, self._pending_swap_v = self._pending_swap_v, []
-        out: Dict[str, Optional[torch.Tensor]] = {}
+        out: Dict[str, object] = dict(views) if own else {}
         out["swap_k"], out["swap_k_scale"] = self._fold_swap_half(
             "k", kq, views)
         out["swap_v"], out["swap_v_scale"] = self._fold_swap_half(
@@ -1459,7 +1588,8 @@ class Engine:
                 k * len(plan.decodes) - sum(plan.decode_iters)
             self.k_counts[k] = self.k_counts.get(k, 0) + 1
         return StepHandle(token_ids=token_ids, prefill_logits=pre_logits,
-                          assembly_time=t_asm, done=done)
+                          assembly_time=t_asm, done=done,
+                          full_logits=self.ecfg.return_full_logits)
 
     def execute(self, plan: StepPlan) -> StepHandle:
         """Synchronous convenience wrapper: dispatch + wait."""

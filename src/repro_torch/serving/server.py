@@ -289,9 +289,10 @@ class AsymCacheServer:
             # §5.1 chunk decision — both sides must share one lattice
             self.sched.cfg.token_buckets = self.engine.token_buckets
             self.sched.cfg.page_buckets = self.engine.np_buckets
-            # multi-token decode dispatch is a fused single-device path;
-            # the split layout and sharded serving force k = 1
-            if scfg.n_shards > 1 or ecfg.attn_mode != "fused":
+            # multi-token decode dispatch is a fused single-device
+            # vectorized-assembly path; other layouts force k = 1
+            if (scfg.n_shards > 1 or ecfg.attn_mode != "fused"
+                    or ecfg.assembly == "legacy"):
                 scfg.scheduler.max_decode_steps = 1
             # a queued COW copy / host-tier swap-in targets ONE step
             # boundary's pool state — k-step plans wait for empty queues

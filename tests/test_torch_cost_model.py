@@ -277,8 +277,8 @@ def _phase3(sessions=None):
 
 def _phase5(k):
     """Phase 5's model-clock arm (``chip_smoke._online_run``) over the
-    first 8 layers."""
-    cfg = dataclasses.replace(LLAMA, n_layers=8)
+    first ``OFFLOAD_LAYERS`` layers."""
+    cfg = dataclasses.replace(LLAMA, n_layers=smoke.OFFLOAD_LAYERS)
     ecfg = P.EngineConfig(num_pages=384, page_size=16, max_prefills=4,
                           max_chunk=128, max_decodes=64,
                           max_blocks_per_seq=256)
