@@ -102,6 +102,7 @@ from repro_torch.models.layers import (apply_rope, moe_ffn_local, rms_norm,
                                        swiglu_mlp)
 from repro_torch.models.model import _layer_windows
 from repro_torch.serving.scheduler import StepPlan
+from repro_torch.serving.tracing import NO_RANGE, PREFIX
 
 # minimum work-list bucket; lengths round up to the next power of two
 # above this, so the per-W step variants are at most log2(Wmax) many
@@ -467,6 +468,10 @@ class Engine:
         self.multi_token_iterations = 0    # sum of k over those
         self.multi_token_rollbacks = 0     # masked (unconsumed) iterations
         self.k_counts: Dict[int, int] = {}
+        # the server's tracer (serving/tracing.py; None: off), and whether
+        # each layer's parts get a profiler range (while one records)
+        self.tracer = None
+        self.layer_ranges = False
         self._layouts: Dict[Tuple[int, int, int, int],
                             Tuple[List[Tuple[str, int, int]], int]] = {}
 
@@ -609,7 +614,8 @@ class Engine:
             kp, vp = self.k_pools[l], self.v_pools[l]
             write_kv_pages(kp, vp, self._snap(k_new), self._snap(v_new),
                            write_slot, write_off, valid)
-            attn = attend(l, q, kp, vp)
+            with self._range("attn"):
+                attn = attend(l, q, kp, vp)
             x = x + attn.reshape(T, H * hd) @ blocks["wo"][l].reshape(
                 H * hd, d)
             x = self._mlp_sublayer(x, blocks, l)
@@ -648,14 +654,25 @@ class Engine:
         h2 = rms_norm(x, blocks["mlp_norm"][l], cfg.norm_eps)
         if cfg.moe is not None:
             m = cfg.moe
-            y = moe_ffn_local(h2, blocks["router"][l], blocks["we1"][l],
-                              blocks["we3"][l], blocks["we2"][l], m.top_k,
-                              m.capacity_factor, dropless=m.dropless,
-                              expert_split=m.expert_split)
+            with self._range("moe"):
+                y = moe_ffn_local(h2, blocks["router"][l], blocks["we1"][l],
+                                  blocks["we3"][l], blocks["we2"][l],
+                                  m.top_k, m.capacity_factor,
+                                  dropless=m.dropless,
+                                  expert_split=m.expert_split)
         else:
-            y = swiglu_mlp(h2, blocks["w1"][l], blocks["w3"][l],
-                           blocks["w2"][l])
+            with self._range("mlp"):
+                y = swiglu_mlp(h2, blocks["w1"][l], blocks["w3"][l],
+                               blocks["w2"][l])
         return y
+
+    def _range(self, name: str):
+        """A profiler range ``repro.<name>`` around one part of a layer
+        while the tracer sees a profiler recording; a shared no-op
+        context otherwise."""
+        if self.layer_ranges:
+            return torch.profiler.record_function(PREFIX + name)
+        return NO_RANGE
 
     def _fused_pass(self, params, tokens, pos, valid, write_slot, write_off,
                     ctx, bt, seq_ids, worklist, units, t_bucket: int):
@@ -1553,13 +1570,20 @@ class Engine:
         host can schedule and assemble the next step meanwhile (the
         in-place pool updates of consecutive steps are ordered by the
         stream)."""
-        t0 = time.perf_counter()
+        tr = self.tracer
+        t0 = time.perf_counter() if tr is None else tr.open("assemble")
         k = plan.decode_steps
         inp, (t_b, np_b, w_b) = self.build_inputs(plan)
-        t_asm = time.perf_counter() - t0
+        t1 = time.perf_counter() if tr is None else tr.close()
+        t_asm = t1 - t0
+        if tr is not None:
+            tr.open("enqueue")
+            self.layer_ranges = tr.profiling
         with torch.no_grad():
             token_ids, pre_logits = self._step_impl(
                 self.params, inp, t_b, np_b, w_b, k)
+        if tr is not None:
+            tr.close()
         done = None
         if self.device.type == "cuda":
             # sharded: the ids are gathered on the first shard's device,

@@ -125,6 +125,11 @@ class ChunkingScheduler:
         # pool state at ONE step boundary, not k of them), so k-step
         # plans are only emitted when every queue is empty.
         self.pending_ops_fn = None
+        # admission attempts and successes (always counted; the tracer
+        # reads them per step), and the server's tracer (None: off)
+        self.admit_tries = 0
+        self.admitted = 0
+        self.tracer = None
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -325,6 +330,9 @@ class ChunkingScheduler:
         # made, not sessions resident (benchmarks/control_plane_stress.py
         # gates this).
         if len(self.running) < c.max_running and self.waiting:
+            tr = self.tracer
+            if tr is not None:
+                tr.open("admit")
             still_waiting = []
             waiting = self.waiting
             if c.admission == "fewest-remaining" and len(waiting) > 1:
@@ -336,11 +344,16 @@ class ChunkingScheduler:
                 if len(self.running) >= c.max_running:
                     still_waiting.extend(waiting[i:])
                     break
-                if req.arrival <= now and self._admit(req, now):
-                    self.running.append(req)
-                else:
-                    still_waiting.append(req)
+                if req.arrival <= now:
+                    self.admit_tries += 1
+                    if self._admit(req, now):
+                        self.admitted += 1
+                        self.running.append(req)
+                        continue
+                still_waiting.append(req)
             self.waiting = still_waiting
+            if tr is not None:
+                tr.close()
 
         # 2. decodes first (memory-bound, latency-critical)
         decodes = [r for r in self.running if r.state == RequestState.DECODE]

@@ -55,6 +55,7 @@ from repro_torch.distributed import make_serving_devices
 from repro_torch.serving.engine import Engine, EngineConfig, StepHandle
 from repro_torch.serving.request import Request, RequestState, SessionStats
 from repro_torch.serving.scheduler import ChunkingScheduler, SchedulerConfig, StepPlan
+from repro_torch.serving.tracing import Tracer
 
 # graceful-degradation bounds (docs/SERVING.md "Failure semantics"):
 # all-idle admission retries before the head-of-line request is rejected,
@@ -334,6 +335,46 @@ class AsymCacheServer:
         self._stall_retries = 0
         self._dispatch_failures = 0      # consecutive
         self._consec_source_errors = 0
+        # spans and counters of the loop (serving/tracing.py): the tracer
+        # attached (None = off) and the last one that was
+        self.tracer: Optional[Tracer] = None
+        self._recorded: Optional[Tracer] = None
+
+    def enable_tracing(self, capacity: int = 1 << 18) -> Tracer:
+        """Record the loop's spans from now on: one tracer, shared with
+        the scheduler and the engine (off by default)."""
+        self._attach(Tracer(capacity))
+        return self.tracer
+
+    def trace_export(self) -> Optional[Dict]:
+        """What the last tracer attached recorded (``Tracer.export``), or
+        None when none was."""
+        return None if self._recorded is None else self._recorded.export()
+
+    def _attach(self, tr: Optional[Tracer]) -> None:
+        self.tracer = self.sched.tracer = self.engine.tracer = tr
+        self.engine.layer_ranges = False
+        if tr is not None:
+            tr.resume(self.sched.admit_tries, self.sched.admitted)
+            self._recorded = tr
+
+    def _follow_profiler(self, tr: Optional[Tracer]) -> Optional[Tracer]:
+        """The tracer of the loop iteration about to begin: ``tr`` where
+        ``enable_tracing`` made it; otherwise one attached while a
+        ``torch.profiler`` records and detached (its open tree
+        discarded) once none does."""
+        on = torch.autograd._profiler_enabled()
+        if on == (tr is not None):
+            return tr
+        if on:
+            follower = self._recorded
+            if follower is None or not follower.follows:
+                follower = Tracer(follows=True)
+            self._attach(follower)
+        else:
+            tr.discard()
+            self._attach(None)
+        return self.tracer
 
     # ------------------------------------------------------------------
     def _hashes_for(self, req: Request, n_blocks: int):
@@ -427,9 +468,19 @@ class AsymCacheServer:
         faults = self.scfg.faults
         t_run0 = time.perf_counter()
         t_last_dispatch = t_run0
+        tr = self.tracer
+        if tr is not None:
+            tr.discard()         # a tree an earlier serve left open
 
         while (not source.done() or self.sched.waiting
                or self.sched.running) and steps < max_steps:
+            if tr is None or tr.follows:
+                tr = self._follow_profiler(tr)
+            if tr is not None:
+                # an iteration that dispatches nothing (idle jump, retry)
+                # leaves its tree open for the next one
+                tr.open_step()
+                tr.open("poll")
             # admit arrivals due by now (closed-loop sources also fire
             # their due prefetches inside pop_due).  A throwing source
             # (real or injected) degrades to a skipped poll, retried next
@@ -455,9 +506,14 @@ class AsymCacheServer:
 
             if self.uses_pins:
                 self.bm.unpin_expired(self.now)
-            t0 = time.perf_counter()
+            if tr is None:
+                t0 = time.perf_counter()
+            else:
+                tr.close()                 # poll
+                t0 = tr.open("schedule")   # its reads are the control plane's
             plan = self.sched.schedule(self.now)
-            self.control_plane_time += time.perf_counter() - t0
+            t = time.perf_counter() if tr is None else tr.close()
+            self.control_plane_time += t - t0
 
             if plan.empty():
                 # idle: jump to the source's next event
@@ -525,12 +581,19 @@ class AsymCacheServer:
                 self.engine.queue_copies(copies)
                 self.bm.release([s for s, _ in copies], self.now)
 
+            if tr is not None:
+                tr.dispatched(self.now, plan, self.sched.admit_tries,
+                              self.sched.admitted)
             t1 = time.perf_counter()
             handle = self.engine.dispatch(plan)
             self.control_plane_time += handle.assembly_time
 
             if depth == 0:
+                if tr is not None:
+                    tr.open("wait")
                 handle.block()     # synchronous order: wait for the device
+                if tr is not None:
+                    tr.close()
             if self.scfg.clock == "model":
                 self.now += self._step_latency(plan)
             elif depth == 0:
@@ -546,11 +609,19 @@ class AsymCacheServer:
                     and steps % self.scfg.audit_every == 0:
                 self.bm.check_invariants()
 
+            if tr is not None:
+                tr.open("postprocess")
             self._postprocess(plan)
+            if tr is not None:
+                tr.close()
             inflight.append((plan, handle))
             while len(inflight) > depth:
                 self._retire(*inflight.popleft())
+            if tr is not None:
+                tr.close_step()
 
+        if tr is not None:
+            tr.discard()               # the last iteration dispatched nothing
         while inflight:                # drain the pipeline
             self._retire(*inflight.popleft())
         wall = time.perf_counter() - t_run0
@@ -809,7 +880,15 @@ class AsymCacheServer:
         every selection row and the prefill logit rows for requests whose
         prefill completed (losslessness validation)."""
         R = self.engine.ecfg.max_prefills
+        tr = self.tracer
+        if tr is not None:
+            tr.open("retire")
+            tr.open("wait")
         ids = handle.token_ids_np()
+        pre = handle.prefill_logits_np() if any(
+            c.completes_prefill for c in plan.prefills) else None
+        if tr is not None:
+            tr.close()
         # pipelined wall clock: at _postprocess time the clock had not yet
         # absorbed this step's device execution (it is billed to the next
         # dispatch-to-dispatch interval); by retirement it has, so re-stamp
@@ -819,7 +898,7 @@ class AsymCacheServer:
         for r, chunk in enumerate(plan.prefills):
             if chunk.completes_prefill:
                 req = chunk.req
-                req.first_logits = handle.prefill_logits_np()[r].copy()
+                req.first_logits = pre[r].copy()
                 req.sampled_ids.append(int(ids[r]))
                 if restamp:
                     req.first_token_at = self.now
@@ -832,6 +911,8 @@ class AsymCacheServer:
         else:
             for i, req in enumerate(plan.decodes):
                 req.sampled_ids.append(int(ids[R + i]))
+        if tr is not None:
+            tr.close()
 
     def _finish(self, req: Request) -> None:
         # §5.1 online lifespan: feed actual per-block reuse intervals
