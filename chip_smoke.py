@@ -3706,11 +3706,14 @@ def cost_model_phase(card, cfg, params):
     evicted to fresh pages) and held to the dense reference (first logits
     within ``LOGIT_REL_TOL``); then each of ``COST_INSTANCES`` instances
     (``cost_instances``) through ``Engine.dispatch``: a warm-up round
-    that captures each one's layer-0 ``msa_fused`` inputs and times the
-    kernel alone on them (median of ``COST_RUNS``, the device alone:
-    MSA's positional cost), then ``COST_RUNS`` rounds that time each
-    step (CUDA events around the dispatch and a sync: the whole step, as
-    the server's model prices it; the median of an instance's rounds).
+    that runs each one's step eager, captures its layer-0 ``msa_fused``
+    inputs and times the kernel alone on them (median of ``COST_RUNS``,
+    the device alone: MSA's positional cost), a second warm-up round with
+    the step's CUDA graphs on (a bucket's graph is captured at its second
+    use), then ``COST_RUNS`` rounds that time each step (CUDA events
+    around the dispatch and a sync: the whole step, as the server's model
+    prices it, replayed from its bucket's graph; the median of an
+    instance's rounds).
     Both fitted with ``core.fit``; one ``cost_fit:`` line each with the
     constants, R², Eq. 7's slope and the analytic H100 model's slope and
     median relative error against the measured steps; then the link
@@ -3753,14 +3756,15 @@ def cost_model_phase(card, cfg, params):
         srv.bm.release(req.block_slots, 0.0)
     checked_s = time.perf_counter() - t0
 
-    # round 0 warms each instance up (and times its kernel on layer 0's
-    # captured inputs); rounds 1..COST_RUNS time the steps, every
-    # instance once a round, so that the host's drift over the phase
-    # (its step times wander by ~10 ms over tens of instances) falls on
-    # all instances alike
+    # round 0 runs each instance's step eager (and times its kernel on
+    # layer 0's captured inputs: a replayed step calls no Python); round 1
+    # warms up the buckets' CUDA graphs; rounds 2..COST_RUNS + 1 time the
+    # steps, every instance once a round, so that the host's drift over
+    # the phase (its step times wander by ~10 ms over tens of instances)
+    # falls on all instances alike
     runs = [[] for _ in insts]
     kernel_ms = []
-    for rnd in range(COST_RUNS + 1):
+    for rnd in range(COST_RUNS + 2):
         for i, inst in enumerate(insts):
             req, plan = two_segment_plan(srv, inst, COST_CHECKED + i, rng)
             torch.cuda.synchronize()
@@ -3773,13 +3777,17 @@ def cost_model_phase(card, cfg, params):
                     return fused(*a, **kw)
 
                 engine_mod.msa_fused = capture
+                eng._graph_eligible = lambda params: False
                 try:
                     eng.dispatch(plan)
                 finally:
                     engine_mod.msa_fused = fused
+                    del eng._graph_eligible
                 a, kw = captured[0]
                 kernel_ms.append(_median_ms(lambda: fused(*a, **kw),
                                             iters=COST_RUNS, warmup=1))
+            elif rnd == 1:
+                eng.dispatch(plan)
             else:
                 runs[i].append(_events_ms(lambda: eng.dispatch(plan))[1])
             srv.bm.release(req.block_slots, 0.0)

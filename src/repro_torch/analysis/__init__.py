@@ -7,8 +7,8 @@ unsuppressed finding):
 
 * ``step_hazards`` — host side effects, Python control flow on a
   tensor's value, host syncs and nondeterminism in functions reachable
-  from the serving step (``Engine._step_impl``): what a CUDA graph of the
-  step forbids.
+  from the serving step a CUDA graph captures (``Engine._step_eager``):
+  what the graph forbids.
 * ``leases`` — every block-reference/pin/queued-op acquire in the port's
   block manager, prefix store, scheduler and server is released (or
   escapes into owned state) on every exit path, fault paths included.

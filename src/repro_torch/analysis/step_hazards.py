@@ -1,11 +1,12 @@
 """step-hazard pass: what a CUDA graph of the serving step forbids (the
 counterpart of ``repro.analysis.jit_hazards``).
 
-Everything reachable from ``Engine._step_impl`` (``serving/engine.py``
+Everything reachable from ``Engine._step_eager`` (``serving/engine.py``
 and the kernels, models and distributed helpers it calls) runs on the
-host once a step today, eagerly.  Captured into a CUDA graph it would run
-once, at capture, and the graph would replay without the host.  Four
-hazard families break that:
+host once a step where the step runs eager.  On the card a fused
+single-device step is captured into a CUDA graph a bucket
+(``Engine._step_impl``): the host runs that code once, at capture, and
+the graph replays without it.  Four hazard families break that:
 
 * **host side effects** — ``self.x = ...`` mutations, updates of module
   state (a function's launch counter, a module-level cache), ``print`` —
@@ -36,8 +37,8 @@ whose return annotation is a host type are host values; the result of a
 
 Each finding is a false positive, which the pass is fixed for, or a real
 sync or side effect, which carries an allow comment with its reason
-(``# repro: allow(step-hazard) — <why>``) until the CUDA graph of the
-step removes it.
+(``# repro: allow(step-hazard) — <why>``) that says why the graph
+stays right.
 """
 from __future__ import annotations
 
@@ -53,9 +54,9 @@ from repro_torch.analysis.common import (_ALLOW_RE, Finding, SourceFile,
 
 PASS = "step-hazard"
 
-# the serving step: the code a CUDA graph of a bucket would capture
+# the serving step: the code a CUDA graph of a bucket captures
 ENTRY_POINTS: List[Tuple[str, str]] = [
-    ("src/repro_torch/serving/engine.py", "Engine._step_impl"),
+    ("src/repro_torch/serving/engine.py", "Engine._step_eager"),
 ]
 
 # parameter names that carry host values (bucket dims, configs, tiling

@@ -166,7 +166,8 @@ H20 = Hardware(name="h20", flops=148e12, hbm_bw=4.0e12, mfu=0.5)
 # HBM3, 700.00 W").  It is the eager host's cost a dispatch, which hides
 # the device's work: the fit's R² is 0.02-0.14 (the step does not follow
 # the chunk's shape) and β follows the host's speed (52-74 ms on four
-# hosts).  Fit it again once a step runs as a CUDA graph.
+# hosts).  The fused step now replays a CUDA graph a bucket: fit it
+# again on such steps.
 H100 = Hardware(name="h100-sxm", flops=989e12, hbm_bw=3.35e12,
                 ici_bw=450e9, mfu=0.5, kernel_launch=52.03e-3)
 # pinned host -> device copy rate of one swap payload (one Llama-3.1-8B

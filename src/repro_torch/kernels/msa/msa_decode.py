@@ -77,8 +77,8 @@ def msa_decode_cuda(
         *ptrs, b, h, kh, d, page, np_, piece_pages, pieces, int(window),
         float(softcap), _build.DTYPE_CODE[q.dtype], stream)
     _build.raise_on_error(lib, "msa_decode", err)
-    # repro: allow(step-hazard) — host side effect: a CUDA graph's replay
-    # would not count its launches (ROADMAP, Queue 1: the CUDA graph)
+    # repro: allow(step-hazard) — host side effect: the split and sharded
+    # steps that launch it run eager (Engine._graph_eligible)
     msa_decode_cuda.launches += 1
     return out
 

@@ -354,8 +354,8 @@ def msa_fused_cuda(
     out = _launch("msa_fused_cuda", q, k_pages, v_pages, q_pos,
                   context_lens, worklist, units, window=window,
                   softcap=softcap, q_tile=q_tile, partial=False)
-    # repro: allow(step-hazard) — host side effect: a CUDA graph's replay
-    # would not count its launches (ROADMAP, Queue 1: the CUDA graph)
+    # repro: allow(step-hazard) — host side effect: counted once at a
+    # capture; Engine._replay adds the captured count at every replay
     msa_fused_cuda.launches += 1
     return out
 
@@ -386,8 +386,8 @@ def msa_fused_partial_cuda(
     out = _launch("msa_fused_partial_cuda", q, k_pages, v_pages, q_pos,
                   context_lens, worklist, units, window=window,
                   softcap=softcap, q_tile=q_tile, partial=True)
-    # repro: allow(step-hazard) — host side effect: a CUDA graph's replay
-    # would not count its launches (ROADMAP, Queue 1: the CUDA graph)
+    # repro: allow(step-hazard) — host side effect: the split and sharded
+    # steps that launch it run eager (Engine._graph_eligible)
     msa_fused_partial_cuda.launches += 1
     return out
 

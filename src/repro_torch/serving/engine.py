@@ -22,9 +22,12 @@ Step shapes come from the same occupancy-bucket lattice as the reference
 (``derive_bucket_lattice``): a fused step is padded to a ``(t_bucket,
 np_bucket)`` of the lattice and its work-list to a power-of-two
 ``w_bucket``; a split step always runs at ``(R * QP + B, NP)``.  So
-``bucket_counts`` and the step counts match the JAX engine.  PyTorch
-runs eagerly; ``jit_traces`` counts the distinct ``(t, np, w, k)``
-buckets first seen, as the reference counts its compiled step variants.
+``bucket_counts`` and the step counts match the JAX engine.
+``jit_traces`` counts the distinct ``(t, np, w, k)`` buckets first seen,
+as the reference counts its compiled step variants.  On the card a fused
+single-device step runs eager the first time its bucket is met, is
+captured into a CUDA graph at the bucket's second use and replays that
+graph from then on (``_step_impl``); every other step runs eager.
 
 Multi-token decode (fused layout): a decode-only plan with
 ``decode_steps == k > 1`` runs k fused decode iterations in one dispatch
@@ -70,6 +73,7 @@ full-precision payloads only, as in the reference.
 """
 from __future__ import annotations
 
+import gc
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple, Union
@@ -87,12 +91,14 @@ from repro_torch.distributed.flash_decode import shard_tables
 from repro_torch.kernels.msa import (
     UNIT_FIELDS,
     WL_FIELDS,
+    _build,
     apply_page_copies,
     apply_swap_ins,
     build_units,
     build_worklist,
     msa_decode,
     msa_fused,
+    msa_fused_cuda,
     msa_prefill,
     pad_worklist,
     write_kv_pages,
@@ -328,6 +334,19 @@ class StepHandle:
         return self._pre_np
 
 
+@dataclass
+class _StepGraph:
+    """One bucket's step captured into a CUDA graph: the static inputs it
+    reads (its own pack buffer, the engine's swap payloads), the outputs
+    it writes, and the ``msa_fused_cuda`` launches its capture counted
+    (a fused single-device step launches no other kernel of ours)."""
+    graph: "torch.cuda.CUDAGraph"
+    inp: Dict[str, Optional[torch.Tensor]]
+    token_ids: torch.Tensor
+    logits: torch.Tensor
+    launches: int
+
+
 class Engine:
     def __init__(self, cfg: ModelConfig, ecfg: EngineConfig, params,
                  device="cuda", shard_devices=None):
@@ -474,6 +493,17 @@ class Engine:
         self.layer_ranges = False
         self._layouts: Dict[Tuple[int, int, int, int],
                             Tuple[List[Tuple[str, int, int]], int]] = {}
+        # CUDA graphs of the step (_step_impl): the captured ones, the
+        # memory pool they share, the stream they are captured on and the
+        # static swap payloads every graph reads (made at the first
+        # capture); one count a step
+        self._graphs: Dict[Tuple[int, int, int, int], _StepGraph] = {}
+        self._graph_pool = None
+        self._capture_stream = None
+        self._graph_swap: Dict[str, Optional[torch.Tensor]] = {}
+        self.graph_captures = 0
+        self.graph_replays = 0
+        self.graph_eager_steps = 0
 
     # ------------------------------------------------------------------
     def pack_layout(self, t_bucket: int, np_bucket: int, w_bucket: int,
@@ -524,7 +554,124 @@ class Engine:
     # ------------------------------------------------------------------
     def _step_impl(self, params, inp, t_bucket: int, np_bucket: int,
                    w_bucket: int, n_iter: int = 1):
-        """One step on the device: in-step page ops, then per layer
+        """One step on the device (:meth:`_step_eager`), replayed from its
+        bucket's CUDA graph where the step allows one
+        (:meth:`_graph_eligible`).  Such a step runs eager the first time
+        its ``(t, np, w, k)`` bucket is met, which also warms cuBLAS and
+        the kernels' one-time set-up; at the bucket's next use outside a
+        profiler it is captured and replayed at once; later uses replay.
+        Every other step runs eager.  Each step counts once in
+        ``graph_captures``, ``graph_replays`` or ``graph_eager_steps``."""
+        key = (t_bucket, np_bucket, w_bucket, n_iter)
+        if self._graph_eligible(params):
+            g = self._graphs.get(key)
+            # buckets_used: the buckets dispatched before this step
+            if g is None and key in self.buckets_used \
+                    and not torch.autograd._profiler_enabled():
+                g = self._graphs[key] = self._capture(params, inp, key)
+                self.graph_captures += 1
+            elif g is not None:
+                self.graph_replays += 1
+            if g is not None:
+                return self._replay(g, inp)
+        self.graph_eager_steps += 1
+        return self._step_eager(params, inp, t_bucket, np_bucket, w_bucket,
+                                n_iter)
+
+    def _graph_eligible(self, params) -> bool:
+        """Whether a step may run from a CUDA graph: on the card, single
+        device, the fused layout with vectorized assembly and sampled ids
+        out, the release kernels (the bounds-checked build copies its
+        extents from the host at every launch) and the engine's own
+        weights (a graph holds their addresses).  The CPU, the split
+        layout, sharded engines and the synchronous baseline's legacy
+        assembly and full logits run eager."""
+        e = self.ecfg
+        return (self.device.type == "cuda" and self.n_shards == 1
+                and e.attn_mode == "fused" and e.assembly != "legacy"
+                and not e.return_full_logits and not _build.checked()
+                and params is self.params)
+
+    def _capture(self, params, inp, key) -> _StepGraph:
+        """Capture bucket ``key``'s step into a CUDA graph; nothing runs on
+        the card.  The graph reads a pack buffer of its own and the
+        engine's static swap payloads, all allocated outside any graph's
+        memory; its temporaries and outputs live in the one pool every
+        graph shares.  That is safe because replays run one after another
+        on one stream, each copies its inputs in just before it and clones
+        its outputs out just after it (:meth:`_replay`)."""
+        tr = self.tracer
+        if tr is not None:
+            tr.open("capture")
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(self.device)
+            self._graph_swap = {
+                name: None if z is None else torch.zeros_like(z)
+                for name, z in (("swap_k", self._zero_swap),
+                                ("swap_v", self._zero_swap),
+                                ("swap_k_scale", self._zero_scale),
+                                ("swap_v_scale", self._zero_scale))}
+        static = {"pack": torch.empty_like(inp["pack"]), **self._graph_swap}
+        before = msa_fused_cuda.launches
+        graph = torch.cuda.CUDAGraph()
+        side = self._capture_stream
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        # no automatic collection inside the capture: one could free an
+        # unreachable engine's graphs or events, a call the capture
+        # refuses, and the capture would fail
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=self._graph_pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    token_ids, logits = self._step_eager(params, static,
+                                                         *key)
+                finally:
+                    graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
+        launches = msa_fused_cuda.launches - before
+        msa_fused_cuda.launches = before      # each replay counts them
+        if tr is not None:
+            tr.close()
+        return _StepGraph(graph, static, token_ids, logits, launches)
+
+    def _replay(self, g: _StepGraph, inp):
+        """Run a step from its bucket's graph: its pack and any swap
+        payload copied into the graph's static inputs on the stream, the
+        replay, the launches its capture counted, and its ids and logit
+        rows cloned out of the graph's memory (the next replay of any
+        graph overwrites it, and the loop dispatches step N+1 before it
+        retires step N)."""
+        tr = self.tracer
+        if tr is not None:
+            tr.open("replay")
+        s = g.inp
+        s["pack"].copy_(inp["pack"])
+        for half in ("swap_k", "swap_v"):
+            if inp[half] is not self._zero_swap:
+                # this half swaps pages in.  A swap-free half sends every
+                # destination to the drop page, which no block table
+                # references, so the stale bytes of the static payload
+                # land where nothing reads them
+                s[half].copy_(inp[half])
+                if s[half + "_scale"] is not None:
+                    s[half + "_scale"].copy_(inp[half + "_scale"])
+        g.graph.replay()
+        msa_fused_cuda.launches += g.launches
+        out = g.token_ids.clone(), g.logits.clone()
+        if tr is not None:
+            tr.close()
+        return out
+
+    def _step_eager(self, params, inp, t_bucket: int, np_bucket: int,
+                    w_bucket: int, n_iter: int = 1):
+        """One step on the device, launched op by op (and so what a
+        bucket's CUDA graph captures): in-step page ops, then per layer
         norm -> q/k/v -> rope -> KV write -> attention (ONE ``msa_fused``
         dispatch, or ``msa_prefill`` + ``msa_decode`` in split mode) ->
         wo -> MLP, then the final norm, the logits at ``sel`` and the
@@ -1516,8 +1663,10 @@ class Engine:
 
     # ------------------------------------------------------------------
     def perf_counters(self) -> Dict[str, object]:
-        """Deterministic hot-path accounting, same schema as the
-        reference engine's."""
+        """Deterministic hot-path accounting: the reference engine's
+        schema, and the port's count of steps captured into a CUDA graph,
+        replayed from one and run eager (they sum to
+        ``engine_dispatches``)."""
         steps = max(self.steps_executed, 1)
         total = max(self.total_token_rows, 1)
         return {
@@ -1540,12 +1689,16 @@ class Engine:
             "multi_token_rollbacks": self.multi_token_rollbacks,
             "k_counts": {f"k{k}": c for k, c
                          in sorted(self.k_counts.items())},
+            "graph_captures": self.graph_captures,
+            "graph_replays": self.graph_replays,
+            "graph_eager_steps": self.graph_eager_steps,
         }
 
     def reset_perf_counters(self) -> None:
         """Zero the deterministic accounting so that one phase of a run
         can be measured alone.  ``jit_traces`` and ``buckets_used`` are
-        kept: the once-per-bucket invariant spans the engine's life."""
+        kept: the once-per-bucket invariant spans the engine's life, as
+        do the captured graphs."""
         self.steps_executed = 0
         self.attn_dispatches = 0
         self.valid_token_rows = 0
@@ -1560,6 +1713,8 @@ class Engine:
         self.multi_token_iterations = 0
         self.multi_token_rollbacks = 0
         self.k_counts = {}
+        self.graph_captures = self.graph_replays = 0
+        self.graph_eager_steps = 0
 
     # ------------------------------------------------------------------
     def dispatch(self, plan: StepPlan) -> StepHandle:

@@ -26,6 +26,8 @@ metric of the benchmark (``bench/metrics/<name>.py``) that reads each:
 | ``admit`` (in ``schedule``) | its admission scan | ``admission_ms``, ``idle_control_plane_ms`` |
 | ``assemble`` | ``Engine.build_inputs`` in ``Engine.dispatch`` | ``idle_control_plane_ms`` |
 | ``enqueue`` | the ``Engine._step_impl`` call in ``Engine.dispatch`` | ``enqueue_ms`` |
+| ``capture`` (in ``enqueue``) | ``Engine._capture``: a bucket's step captured into a CUDA graph | none |
+| ``replay`` (in ``enqueue``) | ``Engine._replay``: the copy-in, the graph's replay and the clone-out | ``graph_replay_share`` |
 | ``postprocess`` | ``AsymCacheServer._postprocess`` | ``host_busy_ms`` |
 | ``retire`` | ``AsymCacheServer._retire`` | ``host_busy_ms`` |
 | ``wait`` (in ``retire``, or the step itself at depth 0) | the blocking fetch of a step's ids and logit rows | ``host_busy_ms`` (left out) |
@@ -42,9 +44,12 @@ While a ``torch.profiler`` records, every span also enters
 ``torch.profiler.record_function("repro.<name>")``, the engine puts a
 ``repro.attn`` and a ``repro.moe`` (or ``repro.mlp``) range around each
 layer's attention and feed-forward (a kernel launched in one belongs to
-that part of the layer), and each step begins with a ``repro.anchor`` range whose clock read is kept
-(``anchors``): :func:`clock_map` maps the in-memory spans onto the
-profiler's clock with them.
+that part of the layer; a step replayed from a CUDA graph has none, as
+its kernels were captured without them), and each step begins with a
+``repro.anchor`` range whose clock read is kept (``anchors``):
+:func:`clock_map` maps the in-memory spans onto the profiler's clock
+with them.  A step that captures its bucket's graph opens ``capture``
+and then ``replay`` for the replay that runs it.
 """
 from __future__ import annotations
 
