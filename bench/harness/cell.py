@@ -15,7 +15,7 @@ import gc
 import math
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -45,6 +45,7 @@ class Run:
     setup_s: float
     requests: List
     trace: Optional[Dict] = None    # trace.summarise() + the stretch
+    reference: Any = None           # the configuration's module (spec.py)
 
     def window_steps(self):
         return [w for now, _, w in self.steps if self.t0 <= now < self.t1]
@@ -99,9 +100,12 @@ def run(spec: Spec, workload: str, seed: int, seconds: float,
     traffic = spec.traffic(wl["traffic"])
     dep = cfg_file["deployment"]
     model = cfg_file["model"]
-    cfg = model_config(cfg_file)
+    ref = spec.reference(cfg_file)
+    cfg = ref.model_config(cfg_file, model_config) \
+        if hasattr(ref, "model_config") else model_config(cfg_file)
     cuda = torch.device(device).type == "cuda"
-    params = None if simulate else make_params(cfg, seed, device)
+    params = None if simulate else make_params(cfg, seed, device,
+                                               ref.leaves(cfg))
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     warm = float(traffic["warm_s"] if warm_s is None else warm_s)
@@ -153,7 +157,8 @@ def run(spec: Spec, workload: str, seed: int, seconds: float,
     setup_s = (window.wall_t0 - t_start) if window.wall_t0 else math.nan
     r = Run(workload=workload, model=model, deployment=dep, peaks=H100,
             window=summary, steps=steps, t0=window.t0, t1=window.t1,
-            setup_s=setup_s, requests=requests, trace=stretch)
+            setup_s=setup_s, requests=requests, trace=stretch,
+            reference=ref)
     metrics = {}
     wanted = spec.metrics(workload, traced)
     if every_metric:
@@ -190,8 +195,8 @@ def run(spec: Spec, workload: str, seed: int, seconds: float,
               and not k.endswith("_reading")}
     t_ref = time.perf_counter()
     chains = check.sample(requests, seed)
-    res = check.compare(params, model, chains, device, control=control) \
-        if chains else None
+    res = check.compare(ref.logits_at, params, model, chains, device,
+                        control=control) if chains else None
     out["correct"] = check.verdict(res, limits)
     out["check"] = {k: {"value": None if res is None else res[k],
                         "limit": v} for k, v in limits.items()}

@@ -6,20 +6,21 @@ it computes a token for: the last prompt position of a turn and each of
 its decode positions (``Request.sampled_ids``).  After the window, with
 the server's state freed, a sample of the finished requests, drawn from
 the seed and holding the one with the longest context, is run through
-the plain reference (``bench/reference``) over its prompt and served
-tokens.  At each such position the gap is the reference's best logit
-less its logit of the token the port picked; the number compared is the
-widest gap of the sample.  It stays near 0 when the port computes what
-the reference does (a pick differs only on a near tie, by little) and
-grows with any error in the prefill through the paged cache, the
-recomputed segments, the decode steps, the routing or the attention.
+the plain reference (``logits_at`` of the configuration's module under
+``bench/reference``) over its prompt and served tokens.  At each such
+position the gap is the reference's best logit less its logit of the
+token the port picked; the number compared is the widest gap of the
+sample.  It stays near 0 when the port computes what the reference does
+(a pick differs only on a near tie, by little) and grows with any error
+in the prefill through the paged cache, the recomputed segments, the
+decode steps, the routing or the attention.
 
 A session's later turn holds its earlier turns' prompts and outputs
 whole, so one reference pass over a session's last finished turn checks
 all of its finished turns.
 
 The control (``control=True``): the same positions through the
-reference computed in fp8 (``reference.model``, ``quant="fp8"``); its
+reference computed in fp8 (``logits_at(..., quant="fp8")``); its
 gap is the reference's best logit less the reference's logit of the
 token the fp8 pass puts first.  ``control_stats`` puts the control's
 numbers in the program's place, and ``verdict`` judges them under the
@@ -32,8 +33,6 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-
-from bench.reference.model import logits_at
 
 MIN_SERVED = 400       # checked positions the sample reaches, at least
 MIN_SESSIONS = 3
@@ -113,11 +112,12 @@ def _gaps(ref, picks) -> tuple:
     return torch.cat(gaps).float().cpu().numpy(), agree
 
 
-def compare(params, model: Dict, chains, device,
+def compare(logits_at, params, model: Dict, chains, device,
             control: bool = False) -> Dict:
     """The port's picks (and the fp8 control's) under the float32
-    reference, over the sampled sessions: the widest gap and the other
-    numbers a cell's limits may name."""
+    reference ``logits_at`` (the configuration's module's), over the
+    sampled sessions: the widest gap and the other numbers a cell's
+    limits may name."""
     cases = [positions(c) for c in chains]
     seqs = [torch.as_tensor(c["seq"], device=device) for c in cases]
     keep = [torch.as_tensor(c["pos"], device=device) for c in cases]

@@ -2,8 +2,8 @@
 the traced stretch.  The least time the chip could take for every
 attention launch of the steps dispatched in the stretch (one a layer:
 the larger of its operations over the bf16 peak and its bytes over the
-HBM bandwidth, ``bench/harness/flops.py``), over the device time of the
-kernels named below."""
+HBM bandwidth, at the layer's window, ``bench/harness/flops.py``), over
+the device time of the kernels named below."""
 from bench.harness.flops import attn_bound_s
 
 # the port's attention kernels on the fused path (csrc/msa_fused.cu),
@@ -21,6 +21,6 @@ def read(run):
     if dev <= 0:
         return None
     page = run.deployment["block_size"]
-    bound = sum(attn_bound_s(w, run.model, page, run.peaks)
+    bound = sum(attn_bound_s(w, run.model, page, run.peaks, run.reference)
                 for w in run.trace["steps"])
     return 100.0 * bound / dev

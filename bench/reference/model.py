@@ -7,10 +7,12 @@ less the departures each configuration file lists: RMS norm scaling by
 ``1 + w``; rotary embedding on the split halves of each head; grouped
 query attention (query head h reads key/value head h // (H / KH)) with
 scores ``q.k / sqrt(D)``, softcapped as ``c * tanh(s / c)`` when the
-model has a cap, causal; SwiGLU, or a mixture of experts that routes
-each token to its top-k experts by the router's logits and weighs their
-SwiGLU outputs by the softmax over those k logits; a final norm and
-the logits against the tied embedding or the head.
+model has a cap, causal, and on a windowed layer (``layer_window``) a
+row at position p sees the keys at p - W + 1 .. p only; SwiGLU, or a
+mixture of experts that routes each token to its top-k experts by the
+router's logits and weighs their SwiGLU outputs by the softmax over
+those k logits; a final norm and the logits against the tied embedding
+or the head.
 
 ``quant="fp8"`` is the control: every weight and every activation that
 enters a linear layer is rounded to float8 e4m3 (per output column for
@@ -21,17 +23,71 @@ the nearest precision below the configuration's bfloat16.
 Work is done layer by layer over all sequences at once, a layer's
 weights upcast when it runs, attention in blocks of query rows, so that
 the reference fits beside the weights it reads.
+
+This is the configurations' default module (``bench/harness/spec.py``):
+``leaves`` gives the parameter layout the benchmark draws the weights
+in, ``logits_at`` the forward pass.  A configuration whose model this
+module does not express names a module of its own that may reuse the
+helpers here (``rms_norm``, ``rope``, ``attention``, ``mlp``,
+``layer_window``, ``leaves``).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 F8_MAX = 448.0
 Q_BLOCK = 1024
+
+
+def leaves(cfg) -> List[Tuple[str, Tuple[int, ...], float]]:
+    """(path, shape, scale) of every parameter of the port's ``ModelConfig``
+    ``cfg``, in the order the benchmark draws them; scale 0 = zeros.  The
+    scales (the configuration file's ``assumed.weights`` states them): q,
+    k and v projections and the router at fan-in, so attention scores
+    have a standard deviation near 1 (at 1/sqrt(H) a head's softmax is
+    one-hot and flips with the last bit), residual outputs depth-scaled,
+    norm weights 0 (the port's norm scales by 1 + w)."""
+    L, d, H, KH, D = (cfg.n_layers, cfg.d_model, cfg.n_heads,
+                      cfg.n_kv_heads, cfg.head_dim)
+    f, V = cfg.d_ff, cfg.vocab_size
+    fan = 1.0 / math.sqrt(d)
+    out = [("embed", (V, d), 0.02),
+           ("blocks.attn_norm", (L, d), 0.0),
+           ("blocks.wq", (L, d, H, D), fan),
+           ("blocks.wk", (L, d, KH, D), fan),
+           ("blocks.wv", (L, d, KH, D), fan),
+           ("blocks.wo", (L, H, D, d), 1.0 / math.sqrt(2 * L * H * D)),
+           ("blocks.mlp_norm", (L, d), 0.0)]
+    if cfg.moe is not None:
+        E = cfg.moe.num_experts
+        out += [("blocks.router", (L, d, E), fan),
+                ("blocks.we1", (L, E, d, f), fan),
+                ("blocks.we3", (L, E, d, f), fan),
+                ("blocks.we2", (L, E, f, d), 1.0 / math.sqrt(2 * L * f))]
+    else:
+        out += [("blocks.w1", (L, d, f), fan),
+                ("blocks.w3", (L, d, f), fan),
+                ("blocks.w2", (L, f, d), 1.0 / math.sqrt(2 * L * f))]
+    out.append(("final_norm", (d,), 0.0))
+    if not cfg.tie_embeddings:
+        out.append(("lm_head", (d, V), 0.02))
+    return out
+
+
+def layer_window(model: Dict, layer: int) -> int:
+    """The attention window of ``layer`` (0: every earlier key), by the
+    port's rule, written again here: ``sliding_window`` W > 0 applies to
+    every layer when ``local_global_ratio`` r is 0, and with r > 0 to
+    the local layers, those with ``layer % (r + 1) != r``."""
+    w = model.get("sliding_window", 0)
+    r = model.get("local_global_ratio", 0)
+    if w <= 0 or (r > 0 and layer % (r + 1) == r):
+        return 0
+    return w
 
 
 def _q8(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -78,8 +134,11 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def attention(q, k, v, softcap: float) -> torch.Tensor:
-    """Causal GQA over one sequence: q (T, H, D), k/v (T, KH, D)."""
+def attention(q, k, v, softcap: float, window: int = 0) -> torch.Tensor:
+    """Causal GQA over one sequence: q (T, H, D), k/v (T, KH, D); with
+    ``window`` W > 0 the keys at ``q_pos - kv_pos >= W`` are masked too
+    (the port's kernel mask), and each block of rows reads only the keys
+    its window reaches."""
     T, H, D = q.shape
     KH = k.shape[1]
     G = H // KH
@@ -89,16 +148,20 @@ def attention(q, k, v, softcap: float) -> torch.Tensor:
     scale = 1.0 / math.sqrt(D)
     for s in range(0, T, Q_BLOCK):
         e = min(T, s + Q_BLOCK)
+        c = max(0, s - window + 1) if window > 0 else 0
         qb = q[s:e].reshape(e - s, KH, G, D).permute(1, 2, 0, 3) * scale
-        sc = qb.reshape(KH, G * (e - s), D) @ kt[:, :, :e]  # (KH, G*n, e)
-        sc = sc.view(KH, G, e - s, e)
+        sc = qb.reshape(KH, G * (e - s), D) @ kt[:, :, c:e]  # (KH, G*n, e-c)
+        sc = sc.view(KH, G, e - s, e - c)
         if softcap > 0:
             sc = softcap * torch.tanh(sc / softcap)
         rows = torch.arange(s, e, device=q.device)[:, None]
-        cols = torch.arange(e, device=q.device)[None, :]
-        sc = sc.masked_fill(cols > rows, float("-inf"))
-        p = torch.softmax(sc, dim=-1).view(KH, G * (e - s), e)
-        o = (p @ vt[:, :e]).view(KH, G, e - s, D)
+        cols = torch.arange(c, e, device=q.device)[None, :]
+        masked = cols > rows
+        if window > 0:
+            masked |= rows - cols >= window
+        sc = sc.masked_fill(masked, float("-inf"))
+        p = torch.softmax(sc, dim=-1).view(KH, G * (e - s), e - c)
+        o = (p @ vt[:, c:e]).view(KH, G, e - s, D)
         out[s:e] = o.permute(2, 0, 1, 3).reshape(e - s, H, D)
     return out
 
@@ -169,9 +232,10 @@ def _logits_at(params, model, seqs, keep, lin):
             .view(N, KH, D)
         del h
         o = torch.empty_like(q)
+        win = layer_window(model, l)
         for s0, n in zip(starts, lens):
             o[s0:s0 + n] = attention(q[s0:s0 + n], k[s0:s0 + n],
-                                     v[s0:s0 + n], cap)
+                                     v[s0:s0 + n], cap, win)
         del q, k, v
         x = x + lin(o.reshape(N, H * D),
                     lin.weight(blocks["wo"][l].reshape(H * D, d)))

@@ -194,14 +194,33 @@ def test_gaps_and_innermost():
 
 
 def test_benchmark_lists_the_new_metrics():
+    # the old and new metrics open ``per_layer`` in this order; later
+    # metrics and cells may follow
     spec = Spec(ROOT)
-    per = {m["name"]: m for m in spec.bench["per_layer"]}
+    per = spec.bench["per_layer"]
     cells = {w["name"] for w in spec.bench["workloads"]}
-    for name in NEW:
-        assert per[name]["moves"] == "itl_p90_s"
-        assert set(per[name]["workloads"]) == cells
-        assert (ROOT / "bench/metrics" / f"{name}.py").is_file()
-    assert [m["name"] for m in spec.bench["per_layer"]] == list(OLD + NEW)
+    assert [m["name"] for m in per[:len(OLD + NEW)]] == list(OLD + NEW)
+    for m in per:
+        assert set(m.get("workloads", cells)) <= cells
+        assert (ROOT / "bench/metrics" / f"{m['name']}.py").is_file()
+    for m in per[len(OLD):len(OLD + NEW)]:
+        assert m["moves"] == "itl_p90_s"
+
+
+def test_every_metric_moves_what_its_cells_report():
+    # a per-layer metric names an end-to-end metric that each of its
+    # cells reports; every cell reports set-up, another end-to-end metric
+    # and a per-layer one
+    spec = Spec(ROOT)
+    cells = [w["name"] for w in spec.bench["workloads"]]
+    for c in cells:
+        e2e = {m["name"] for m in spec.metrics(c, False)}
+        per = spec.metrics(c, True)
+        assert "setup_s" in e2e and len(e2e) >= 2 and per
+        for m in per:
+            assert m["moves"] in e2e, (c, m["name"])
+    for m in spec.bench["end_to_end"] + spec.bench["per_layer"]:
+        assert (ROOT / "bench/metrics" / f"{m['name']}.py").is_file()
 
 
 @pytest.fixture(scope="module")
@@ -243,7 +262,9 @@ def test_traced_run_reads_the_program_spans(spec, program, monkeypatch,
         monkeypatch.delattr(AsymCacheServer, "trace_export")
     out = cell.run(spec, "t.chat", SEED, 6.0, True, "cpu",
                    time.perf_counter())
-    m = {k: v["value"] for k, v in out["metrics"].items()}
+    # the chat cell reads the shared readers under names of its own
+    m = {k.removesuffix(".chat"): v["value"]
+         for k, v in out["metrics"].items()}
     assert m["rows_computed"] > 0
     # no card: no device trace, so no metric of it
     assert "idle_control_plane_ms" not in m
